@@ -19,6 +19,7 @@ import torch
 from .models import Precond, UNetConfig, init_cache, init_weights
 from .sampling import generate
 from .utils.device import resolve_device
+from .utils.profiling import window_summary
 
 GYM_CONFIG = dict(img_resolution=64, img_channels=8, label_dim=4,
                   model_channels=32, channel_mult=(1, 2, 4, 8), num_blocks=2,
@@ -128,21 +129,13 @@ def profile_decode(model, cache, calls: int = 10, trace_path=None) -> dict:
     if trace_path:
         prof.export_chrome_trace(str(trace_path))
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
-
-    events = prof.key_averages()
-    busy_us = sum(dev_us(e) for e in events)
-    launches = sum(e.count for e in events if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
-                                                        "cudaLaunchKernelExC"))
-    top = sorted(events, key=dev_us, reverse=True)[:12]
-    return {"calls": calls, "wall_ms_per_call": wall * 1e3 / calls,
-            "device_busy_ms_per_call": busy_us / 1e3 / calls,
-            "device_idle_share": 1.0 - busy_us / 1e6 / wall,
-            "kernel_launches_per_call": launches / calls,
-            "host_ops_per_call": sum(e.count for e in events if e.key.startswith("aten::"))
-            / calls,
-            "top_device_ms_per_call": [[e.key, dev_us(e) / 1e3 / calls] for e in top]}
+    w = window_summary(prof, wall, calls)
+    return {"calls": calls, "wall_ms_per_call": w["wall_ms"],
+            "device_busy_ms_per_call": w["device_busy_ms"],
+            "device_idle_share": w["device_idle_share"],
+            "kernel_launches_per_call": w["kernel_launches"],
+            "host_ops_per_call": w["host_ops"],
+            "top_device_ms_per_call": w["top_device_ms"]}
 
 
 def main(argv=None):

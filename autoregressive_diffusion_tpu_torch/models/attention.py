@@ -1,4 +1,4 @@
-"""Video / frame self-attention with the fixed-shape ring KV cache, eval mode.
+"""Video / frame self-attention: train mode and the fixed-shape ring KV cache.
 
 Counterpart of autoregressive_diffusion_tpu/models/attention.py:
   * the KV cache is a preallocated ring of `max_frames` slots; frame p goes
@@ -10,6 +10,9 @@ Counterpart of autoregressive_diffusion_tpu/models/attention.py:
     prefill kernel (ops/flash_attention.py); the t == 1 cached decode step
     is a plain two-dot biased joint softmax over the precomputed decode
     tables (decode_tables), as in the JAX package;
+  * train mode is dense attention under the DART mask over the S = 2*T*hw
+    tokens of the concat (ops/masks.train_frame_mask), the clean and noisy
+    replicas sharing RoPE positions; autograd differentiates it;
   * just_2d and FrameAttention are per-frame dense attention.
 The qkv channel split is (s m c), as in the JAX package.
 """
@@ -23,7 +26,7 @@ from torch import nn
 
 from ..ops.attention import dense_attention
 from ..ops.flash_attention import causal_frame_attention, prefill_cache_attention
-from ..ops.masks import ring_slot_position
+from ..ops.masks import expand_to_tokens, ring_slot_position, train_frame_mask
 from ..ops.numerics import mp_sum, normalize
 from ..ops.rope import apply_rope, rope_qk, rope_tables
 from .layers import MPConv
@@ -69,7 +72,7 @@ def _split_qkv(y: torch.Tensor, num_heads: int):
 
 
 class VideoAttention(nn.Module):
-    """Spatiotemporal self-attention over frames (eval mode)."""
+    """Spatiotemporal self-attention over frames."""
 
     def __init__(self, channels: int, num_heads: int, attn_balance: float = 0.3,
                  max_frames: int = 64):
@@ -82,12 +85,14 @@ class VideoAttention(nn.Module):
         self.attn_proj = MPConv(channels, channels, (1, 1))
 
     def forward(self, x: torch.Tensor, cache=None, update_cache: bool = False,
-                frames: int = 0, just_2d: bool = False):
+                frames: int = 0, just_2d: bool = False, mode: str = "eval"):
         b, t, h, w = x.shape[:4]
         hw = h * w
         q, k, v = _split_qkv(self.attn_qkv(x), self.num_heads)
         if just_2d:
             o = dense_attention(q, k, v)  # (b, m, t) are batch dims
+        elif mode == "train":
+            o = self._train_attention(q, k, v, b, t, hw)
         else:
             o = self._eval_attention(q, k, v, cache, frames, b, t, hw)
             if update_cache:
@@ -104,6 +109,19 @@ class VideoAttention(nn.Module):
         y = einops.rearrange(o, "b m t (h w) c -> b t h w (m c)", h=h, w=w)
         y = self.attn_proj(y)
         return mp_sum(x, y, t=self.attn_balance), cache
+
+    def _train_attention(self, q, k, v, b, t, hw):
+        m, t_half = self.num_heads, t // 2
+        pos = torch.arange(t_half, device=q.device)
+        # the clean and noisy replicas share positions
+        qs, ks = rope_qk(q.reshape(b, m, 2, t_half, hw, -1),
+                         k.reshape(b, m, 2, t_half, hw, -1), pos, pos,
+                         center=t_half // 2)
+        mask = torch.as_tensor(expand_to_tokens(train_frame_mask(t_half), hw),
+                               device=q.device)
+        o = dense_attention(qs.reshape(b, m, t * hw, -1), ks.reshape(b, m, t * hw, -1),
+                            v.reshape(b, m, t * hw, -1), mask)
+        return o.reshape(b, m, t, hw, -1)
 
     def _eval_attention(self, q, k, v, cache, frames, b, t, hw):
         m = self.num_heads
@@ -156,7 +174,7 @@ class FrameAttention(nn.Module):
         self.attn_proj = MPConv(channels, channels, (1, 1))
 
     def forward(self, x: torch.Tensor, cache=None, update_cache: bool = False,
-                frames: int = 0, just_2d: bool = True):
+                frames: int = 0, just_2d: bool = True, mode: str = "eval"):
         h, w = x.shape[2:4]
         q, k, v = _split_qkv(self.attn_qkv(x), self.num_heads)
         o = dense_attention(q, k, v)

@@ -1,11 +1,13 @@
-"""Core magnitude-preserving layers, eval mode (PyTorch, channels-last).
+"""Core magnitude-preserving layers (PyTorch, channels-last).
 
 Counterpart of autoregressive_diffusion_tpu/models/layers.py: MPConv,
-Gating and MPCausalConv3d in eval, cached and just_2d modes, with the same
-cache protocol -- y, new_cache = layer(x, ..., cache=..., update_cache=...).
+Gating and MPCausalConv3d in train, eval, cached and just_2d modes, with the
+same cache protocol -- y, new_cache = layer(x, ..., cache=..., update_cache=...).
 Parameters hold the RAW weights under the JAX package's names and layouts;
-every forward normalizes them (mp_weight), as the JAX forward does.
-Train mode and the int8 decode weights belong to later port slices.
+every forward normalizes them (mp_weight), as the JAX forward does. In train
+mode every MPCausalConv3d call goes through ops/fused_conv.fused_gated_conv
+(the CUDA kernels on the card, their plain version on the CPU). The int8
+decode weights belong to a later port slice.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.fused_conv import fused_gated_conv
 from ..ops.numerics import mp_weight
 
 
@@ -59,7 +62,8 @@ class MPConv(nn.Module):
 
 class Gating(nn.Module):
     """Noise/position-conditioned gate between the 2D and context conv
-    branches, eval positions: log1p(arange % t + frames).
+    branches, positions log1p(arange % t + frames); in train mode c_noise
+    is over the DART concat and both halves share the positions of t = T.
     gate = mn + (1-mn)*mx*sigmoid(mult . (c_noise, position) + offsets)."""
 
     def __init__(self):
@@ -70,12 +74,13 @@ class Gating(nn.Module):
         self.min_gating = nn.Parameter(torch.tensor(-5.0))
 
     def forward(self, c_noise: torch.Tensor, n_context_frames: int = 0,
-                just_2d: bool = False) -> torch.Tensor:
+                just_2d: bool = False, train: bool = False) -> torch.Tensor:
         b, t = c_noise.shape
         if just_2d:
             positions = torch.zeros_like(c_noise)
         else:
-            pos = torch.arange(b * t, device=c_noise.device) % t
+            t_dim = t // 2 if train else t
+            pos = torch.arange(b * t, device=c_noise.device) % t_dim
             pos = pos.reshape(b, t) + n_context_frames
             positions = torch.log1p(pos.to(c_noise.dtype))
         state = ((c_noise * self.mult[0] + self.offset[0])
@@ -86,10 +91,14 @@ class Gating(nn.Module):
 
 
 class MPCausalConv3d(nn.Module):
-    """Magnitude-preserving causal 3D gated conv, eval mode: a 2D conv on
-    each frame ("last_frame_conv") blended by the Gating with a (kt-1)xkhxkw
-    conv over the STRICTLY PAST frames, whose last kt-1 frames of input
-    activations live in the cache (a ones frame before the clip start).
+    """Magnitude-preserving causal 3D gated conv: a 2D conv on each frame
+    ("last_frame_conv") blended by the Gating with a (kt-1)xkhxkw conv over
+    the STRICTLY PAST frames. In eval mode the last kt-1 frames of input
+    activations live in the cache (a ones frame before the clip start). In
+    train mode x is the DART concat (B, 2T, H, W, C): only the clean half
+    feeds the context conv, ones frames stand before the clip start and the
+    result serves both halves; `silu_in` and `cvec` ask for the input
+    transform mp_silu(x * cvec) inside the fused conv.
     Weight `w`: (kt-1, kh, kw, in, out)."""
 
     def __init__(self, in_channels: int, out_channels: int,
@@ -108,7 +117,12 @@ class MPCausalConv3d(nn.Module):
                 self.gating(c_noise, frames))
 
     def forward(self, x: torch.Tensor, c_noise: torch.Tensor, frames: int = 0,
-                cache=None, update_cache: bool = False, just_2d: bool = False):
+                cache=None, update_cache: bool = False, just_2d: bool = False,
+                mode: str = "eval", silu_in: bool = False, cvec=None):
+        if mode == "train":
+            return self._train(x, c_noise, frames, just_2d, silu_in, cvec), cache
+        if silu_in or cvec is not None:
+            raise ValueError("silu_in and cvec are train-mode arguments")
         b, t, h, w, cin = x.shape
         y2d = self.last_frame_conv(x)
         if just_2d:
@@ -132,3 +146,16 @@ class MPCausalConv3d(nn.Module):
         wcat = w3.permute(1, 2, 0, 3, 4).reshape(kh, kw, kt_ctx * cin, -1)
         ctx = conv2d_nhwc(xs, wcat)
         return mp_sum_gated(y2d, ctx, gate), new_cache
+
+    def _train(self, x, c_noise, frames, just_2d, silu_in, cvec):
+        if self.kernel != (3, 3, 3):
+            raise NotImplementedError("the fused conv is the 3x3x3 kernel")
+        dt = x.dtype
+        w2 = self.last_frame_conv.weight(dt)
+        if cvec is not None:
+            cvec = cvec.to(dt).contiguous()
+        if just_2d:
+            return fused_gated_conv(x.contiguous(), w2, None, cvec, None, silu_in, False)
+        w3 = mp_weight(self.w).to(dt)
+        gate = self.gating(c_noise, frames, train=True).float()
+        return fused_gated_conv(x.contiguous(), w2, w3, cvec, gate, silu_in, True)

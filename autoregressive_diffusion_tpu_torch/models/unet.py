@@ -1,13 +1,17 @@
-"""EDM2 magnitude-preserving UNet denoiser + preconditioner, eval mode.
+"""EDM2 magnitude-preserving UNet denoiser + preconditioner.
 
 Counterpart of autoregressive_diffusion_tpu/models/unet.py with the same
 module names (so the weight bridge is a rename), channels-last videos
 (B, T, H, W, C) and the same cache pytree (nested dicts of tensors; the
 frame counter is a host int, since eager PyTorch has no static/traced
-split). Blocks follow the JAX package's unfused semantics; the T=1 cached
-decode step of every attention-free Block, and the T=1 just_2d step, run
-the fused decode Block (ops/fused_conv.py). The TPU packed-chain planner is
-not ported.
+split). Blocks follow the JAX package's unfused semantics. In eval mode the
+T=1 cached decode step of every attention-free Block, and the T=1 just_2d
+step, run the fused decode Block (ops/fused_conv.py). In train mode (x is
+the DART concat of clean and noisy frames, or plain frames with just_2d)
+every causal conv runs the fused gated conv with its input transform
+folded in, and attention is dense under the DART mask. The TPU
+packed-chain planner and its lane layout are not carried over; dropout is
+not ported (every configuration has 0) and a non-zero value raises.
 """
 from __future__ import annotations
 
@@ -129,7 +133,7 @@ class MPFourier(nn.Module):
 
 
 class Block(nn.Module):
-    """UNet residual block, eval mode (JAX package models/unet.py:149-377)."""
+    """UNet residual block (JAX package models/unet.py:149-377)."""
 
     def __init__(self, in_channels: int, out_channels: int, emb_channels: int,
                  flavor: str = "enc", resample_mode: str = "keep",
@@ -157,11 +161,14 @@ class Block(nn.Module):
             self.attn = FrameAttention(out_channels, num_heads, attn_balance)
 
     def forward(self, x, emb, c_noise, frames: int = 0, cache=None,
-                update_cache: bool = False, just_2d: bool = False):
+                update_cache: bool = False, just_2d: bool = False,
+                mode: str = "eval"):
         cache = cache or {}
         in_channels = x.shape[-1]
         x = resample(x, mode=self.resample_mode)
         c = self.emb_linear(emb, gain=self.emb_gain) + 1  # (B, T, Co), emb's type
+        if mode == "train":
+            return self._train(x, c, c_noise, frames, just_2d, in_channels), cache
         cache0, cache1 = cache.get("conv_res0"), cache.get("conv_res1")
         if (self.attention is None and x.shape[1] == 1
                 and (just_2d or (cache0 is not None and cache1 is not None))):
@@ -190,6 +197,26 @@ class Block(nn.Module):
             new_cache["attn"] = attn_cache
         return x, new_cache
 
+    def _train(self, x, c, c_noise, frames, just_2d, in_channels):
+        """Train mode: mp_silu and the modulation by c run inside the fused
+        convs (silu_in, cvec)."""
+        if self.flavor == "enc":
+            if in_channels != self.out_channels:
+                x = self.conv_skip(x)
+            x = normalize(x, dim=-1)  # pixel norm
+        y, _ = self.conv_res0(x, c_noise, frames, just_2d=just_2d, mode="train",
+                              silu_in=True)
+        y, _ = self.conv_res1(y, c_noise, frames, just_2d=just_2d, mode="train",
+                              silu_in=True, cvec=c)
+        if self.flavor == "dec" and in_channels != self.out_channels:
+            x = self.conv_skip(x)
+        x = mp_sum(x, y, t=self.res_balance)
+        if hasattr(self, "attn"):
+            x, _ = self.attn(x, None, False, frames, just_2d, mode="train")
+        if self.clip_act is not None:
+            x = torch.clamp(x, -self.clip_act, self.clip_act)
+        return x
+
     def _fused_decode(self, x, c, c_noise, frames, cache0, cache1, update_cache,
                       just_2d):
         """The attention-free Block's T=1 step as one fused-Block call."""
@@ -212,7 +239,7 @@ class Block(nn.Module):
 
 
 class UNet(nn.Module):
-    """Encoder/decoder (JAX package models/unet.py:380-569), eval mode."""
+    """Encoder/decoder (JAX package models/unet.py:380-569)."""
 
     def __init__(self, cfg: UNetConfig):
         super().__init__()
@@ -236,8 +263,13 @@ class UNet(nn.Module):
             self.add_module(name if side == "out" else f"{side}_{name}", mod)
 
     def forward(self, x, c_noise, conditioning=None, cache=None,
-                update_cache: bool = False, just_2d: bool = False):
+                update_cache: bool = False, just_2d: bool = False,
+                mode: str = "eval"):
         cfg = self.cfg
+        if mode not in ("eval", "train"):
+            raise ValueError(f"unknown mode {mode!r}")
+        if mode == "train" and cfg.dropout > 0.0:
+            raise NotImplementedError("dropout is not ported: train with dropout=0")
         cache = cache or {}
         t = x.shape[1]
         frames = int(cache.get("frames", 0))
@@ -256,16 +288,18 @@ class UNet(nn.Module):
         for side, name, spec in self.layout:
             if side == "out":
                 x, new_cache["out_conv"] = self.out_conv(
-                    x, c_noise, frames, cache.get("out_conv"), update_cache, just_2d)
+                    x, c_noise, frames, cache.get("out_conv"), update_cache, just_2d,
+                    mode=mode)
                 continue
             mod = getattr(self, f"{side}_{name}")
             sub = cache.get(side, {}).get(name)
             if side == "dec" and "block" in name:
                 x = mp_cat(x, skips.pop(), t=cfg.concat_balance)
             if spec["kind"] == "conv":
-                x, c = mod(x, c_noise, frames, sub, update_cache, just_2d)
+                x, c = mod(x, c_noise, frames, sub, update_cache, just_2d, mode=mode)
             else:
-                x, c = mod(x, emb, c_noise, frames, sub, update_cache, just_2d)
+                x, c = mod(x, emb, c_noise, frames, sub, update_cache, just_2d,
+                           mode=mode)
             new_cache[side][name] = c
             if side == "enc":
                 skips.append(x)
@@ -288,9 +322,6 @@ class Precond(nn.Module):
     def forward(self, x, sigma, conditioning=None, cache=None,
                 update_cache: bool = False, mode: str = "eval",
                 just_2d: bool = False):
-        if mode != "eval":
-            raise NotImplementedError("the port runs eval mode only (training "
-                                      "is a later slice)")
         x = x.float()
         sigma = sigma.float()
         s = sigma[:, :, None, None, None]
@@ -300,7 +331,7 @@ class Precond(nn.Module):
         c_in = 1 / torch.sqrt(sd ** 2 + s ** 2)
         c_noise = torch.log(sigma) / 4
         f_x, cache = self.unet((c_in * x).to(self.body_dtype), c_noise, conditioning,
-                               cache, update_cache, just_2d)
+                               cache, update_cache, just_2d, mode)
         return c_skip * x + c_out * f_x.float(), cache
 
 

@@ -1,7 +1,21 @@
-"""Fused attention-free decode Block: a hand-written CUDA kernel
-(csrc/decode_block.cu) and its plain PyTorch version.
+"""The fused conv kernels and their plain PyTorch versions: the train-mode
+fused gated causal conv (csrc/fused_conv_fwd.cu, csrc/fused_conv_bwd.cu,
+under a torch.autograd.Function) and the fused attention-free decode Block
+(csrc/decode_block.cu).
 
-Replaces autoregressive_diffusion_tpu/ops/fused_conv.py::fused_decode_block
+`fused_gated_conv` replaces
+autoregressive_diffusion_tpu/ops/fused_conv.py::fused_gated_conv (:784,
+forward pallas_call :830, backward _fused_bwd :879) on channels-last
+tensors, without the TPU's packed lane layout: the input transform
+(x * cvec, mp_silu), the 3x3 conv on every frame of the DART concat, the
+2x3x3 context conv over the past clean frames (ones before the clip start)
+and the gate blend, in one forward kernel; dx, dw2, dw3, dcvec and dgates in
+one backward call. The plain version fixes the order of roundings that the
+kernels follow: the transform is fp32 and is rounded to the working type,
+the products take it and the weights in the working type and are summed in
+fp32, the blend is fp32 and the result is rounded once.
+
+`fused_decode_block` replaces autoregressive_diffusion_tpu/ops/fused_conv.py::fused_decode_block
 (:1130, Pallas kernel _decode_kernel :1069): one T=1 cached-decode step of
 an attention-free Block -- [enc: 1x1 skip, pixel norm] -> mp_silu -> conv0
 3x3 + context conv over the 2-frame ring a0, gate g0 -> *cv -> mp_silu ->
@@ -11,11 +25,8 @@ ring update. The plain version follows the TPU kernel's numerics: the skip
 product and the pixel norm are fp32, the convolutions take t0/t1 and the
 rings in the working type and sum in fp32.
 
-The train-mode fused gated conv of the JAX module (and its packed lane
-layout) is not part of this port slice.
-
-On CUDA tensors the wrapper launches the kernel or raises; the plain
-version runs only for CPU tensors (and in chip_smoke.py, as the yardstick
+On CUDA tensors a wrapper launches its kernel or raises; the plain
+versions run only for CPU tensors (and in chip_smoke.py, as the yardstick
 the kernel is held against).
 """
 from __future__ import annotations
@@ -30,6 +41,11 @@ from . import _build
 # Fused-Block launches since the last reset (chip_smoke.py zeroes and reads
 # it). One count is one Block: the kernel's three stages run back to back.
 launches = 0
+# Train-mode fused gated conv: forward launches, and backward calls (one
+# count is one call of the backward entry point, whose stages run back to
+# back on one stream).
+conv_fwd_launches = 0
+conv_bwd_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SIGNATURES = {"ad_decode_block": (
@@ -37,6 +53,10 @@ _SIGNATURES = {"ad_decode_block": (
     + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
        ctypes.c_void_p],
     ctypes.c_int)}
+_FWD_SIGNATURES = {"ad_fused_conv_fwd": (
+    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p], ctypes.c_int)}
+_BWD_SIGNATURES = {"ad_fused_conv_bwd": (
+    [ctypes.c_void_p] * 16 + [ctypes.c_int] * 10 + [ctypes.c_void_p], ctypes.c_int)}
 
 
 def _silu_f32(z):
@@ -90,13 +110,13 @@ def fused_decode_block_plain(x, a0, a1, wsk, w20, w30, w21, w31, cv, gates,
 
 def _check(name, t, shape, dtype, device):
     if t is None:
-        raise ValueError(f"decode block: {name} is required")
+        raise ValueError(f"fused kernel: {name} is required")
     if t.device != device or t.dtype != dtype or tuple(t.shape) != tuple(shape):
-        raise ValueError(f"decode block: {name} is {tuple(t.shape)} {t.dtype} "
+        raise ValueError(f"fused kernel: {name} is {tuple(t.shape)} {t.dtype} "
                          f"on {t.device}; expected {tuple(shape)} {dtype} on "
                          f"{device}")
     if not t.is_contiguous():
-        raise ValueError(f"decode block: {name} must be contiguous")
+        raise ValueError(f"fused kernel: {name} must be contiguous")
 
 
 def _launch(x, a0, a1, wsk, w20, w30, w21, w31, cv, gates, flavor, res_t,
@@ -175,3 +195,164 @@ def fused_decode_block(x, a0, a1, wsk, w20, w30, w21, w31, cv, gates,
                                         gates, flavor, res_t, clip, with_ctx)
     return _launch(x, a0, a1, wsk, w20, w30, w21, w31, cv, gates, flavor,
                    res_t, clip, with_ctx)
+
+
+# ---------------------------------------------------------------------------
+# Train-mode fused gated causal conv
+
+def fused_gated_conv_plain(x, w2, w3, cvec, gates, silu_in: bool, with_ctx: bool):
+    """Plain version of fused_gated_conv (same arguments); differentiable
+    by autograd in x, w2, w3, cvec and gates."""
+    dt = x.dtype
+    b, f, h, w, c = x.shape
+    a = x.float()
+    if cvec is not None:
+        a = a * cvec.float()[:, :, None, None, :]
+    if silu_in:
+        a = _silu_f32(a)
+    a = a.to(dt).float()
+    y2d = _conv3x3(a.reshape(b * f, h, w, c), w2).reshape(b, f, h, w, -1)
+    if not with_ctx:
+        return y2d.to(dt)
+    t = f // 2
+    # h[t], h[t+1] = clean frames t-2, t-1; ones before the clip start
+    ones = torch.ones((b, 2, h, w, c), dtype=a.dtype, device=a.device)
+    hist = torch.cat([ones, a[:, :t - 1]], dim=1)
+    ctx = (_conv3x3(hist[:, :t].reshape(b * t, h, w, c), w3[0])
+           + _conv3x3(hist[:, 1:t + 1].reshape(b * t, h, w, c), w3[1]))
+    ctx = ctx.reshape(b, t, h, w, -1)
+    ctx = torch.cat([ctx, ctx], dim=1)  # the clean half's context serves both
+    g = gates.float()[:, :, None, None, None]
+    out = (y2d + (ctx - y2d) * g) * torch.rsqrt((1 - g) ** 2 + g ** 2)
+    return out.to(dt)
+
+
+def _conv_args(x, w2, w3, cvec, gates, with_ctx):
+    """Check the arguments of the conv kernels; returns (b, f, h, w, c, co)."""
+    if x.ndim != 5:
+        raise ValueError(f"fused conv: x must be (B, F, H, W, C), got {tuple(x.shape)}")
+    dt, dev = x.dtype, x.device
+    if dt not in _DTYPES:
+        raise ValueError(f"fused conv: dtype {dt} not float32/bfloat16")
+    b, f, h, w, c = x.shape
+    co = w2.shape[-1]
+    _check("x", x, (b, f, h, w, c), dt, dev)
+    _check("w2", w2, (3, 3, c, co), dt, dev)
+    if cvec is not None:
+        _check("cvec", cvec, (b, f, c), dt, dev)
+    if with_ctx:
+        if f % 2:
+            raise ValueError(f"fused conv: the DART concat has an even frame count, got {f}")
+        _check("w3", w3, (2, 3, 3, c, co), dt, dev)
+        _check("gates", gates, (b, f), torch.float32, dev)
+    return b, f, h, w, c, co
+
+
+def _ptr(v):
+    return None if v is None else v.data_ptr()
+
+
+def _launch_conv_fwd(x, w2, w3, cvec, gates, silu_in, with_ctx, want_diff):
+    global conv_fwd_launches
+    b, f, h, w, c, co = _conv_args(x, w2, w3, cvec, gates, with_ctx)
+    if not with_ctx:
+        w3 = gates = None
+    out = torch.empty((b, f, h, w, co), dtype=x.dtype, device=x.device)
+    diff = torch.empty_like(out) if (with_ctx and want_diff) else None
+    lib = _build.load("fused_conv_fwd", _FWD_SIGNATURES)
+    err = lib.ad_fused_conv_fwd(
+        x.data_ptr(), w2.data_ptr(), _ptr(w3), _ptr(cvec), _ptr(gates),
+        out.data_ptr(), _ptr(diff), b, f, h, w, c, co, int(bool(silu_in)),
+        int(bool(with_ctx)), _DTYPES[x.dtype],
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, err, "fused conv forward")
+    conv_fwd_launches += 1
+    return out, diff
+
+
+def _dw_shares(b, f, h, w, c, co, with_ctx) -> int:
+    """Number of shares the (frame, pixel tile) units are dealt into for the
+    weight gradients: enough blocks to fill the card several times over,
+    never more shares than units."""
+    tiles = -(-h // 8) * -(-w // 8)
+    blocks = -(-c // 16) * -(-co // 32) * (3 if with_ctx else 1)
+    units = b * (f // 2 if with_ctx else f) * tiles
+    return max(1, min(units, 256, -(-1056 // blocks)))
+
+
+def _launch_conv_bwd(x, w2, w3, cvec, gates, gout, diff, out, silu_in, with_ctx,
+                     need_dx):
+    global conv_bwd_launches
+    b, f, h, w, c, co = _conv_args(x, w2, w3, cvec, gates, with_ctx)
+    dt, dev = x.dtype, x.device
+    _check("gout", gout, (b, f, h, w, co), dt, dev)
+    if with_ctx:
+        _check("diff", diff, (b, f, h, w, co), dt, dev)
+        _check("out", out, (b, f, h, w, co), dt, dev)
+    else:
+        w3 = gates = diff = out = None
+    kinds = 3 if with_ctx else 1
+    tiles = -(-h // 8) * -(-w // 8)
+    shares = _dw_shares(b, f, h, w, c, co, with_ctx)
+    dx = torch.empty_like(x) if need_dx else None
+    dw2 = torch.empty_like(w2)
+    dw3 = torch.empty_like(w3) if with_ctx else None
+    dcvec = torch.empty_like(cvec) if cvec is not None else None
+    dgates = torch.empty_like(gates) if with_ctx else None
+    wt = torch.empty((kinds, 9, co, c), dtype=dt, device=dev)
+    dcv_part = (torch.empty((b, f, tiles, c), dtype=torch.float32, device=dev)
+                if cvec is not None else None)
+    dw_part = torch.empty((kinds, shares, 9, c, co), dtype=torch.float32, device=dev)
+    lib = _build.load("fused_conv_bwd", _BWD_SIGNATURES)
+    err = lib.ad_fused_conv_bwd(
+        x.data_ptr(), w2.data_ptr(), _ptr(w3), _ptr(cvec), _ptr(gates),
+        gout.data_ptr(), _ptr(diff), _ptr(out), _ptr(dx), dw2.data_ptr(), _ptr(dw3),
+        _ptr(dcvec), _ptr(dgates), wt.data_ptr(), _ptr(dcv_part), dw_part.data_ptr(),
+        b, f, h, w, c, co, int(bool(silu_in)), int(bool(with_ctx)), shares,
+        _DTYPES[dt], torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, err, "fused conv backward")
+    conv_bwd_launches += 1
+    return dx, dw2, dw3, dcvec, dgates
+
+
+class _FusedGatedConv(torch.autograd.Function):
+    """The two conv kernels under autograd (CUDA tensors only). The forward
+    saves its inputs, its result and diff = ctx - y2d; the backward
+    recomputes the transformed activations from x."""
+
+    @staticmethod
+    def forward(ctx, x, w2, w3, cvec, gates, silu_in, with_ctx):
+        want = any(ctx.needs_input_grad)
+        out, diff = _launch_conv_fwd(x, w2, w3, cvec, gates, silu_in, with_ctx, want)
+        ctx.silu_in, ctx.with_ctx = silu_in, with_ctx
+        ctx.save_for_backward(x, w2, w3, cvec, gates, diff, out if with_ctx else None)
+        return out
+
+    @staticmethod
+    def backward(ctx, gout):
+        x, w2, w3, cvec, gates, diff, out = ctx.saved_tensors
+        dx, dw2, dw3, dcvec, dgates = _launch_conv_bwd(
+            x, w2, w3, cvec, gates, gout.contiguous(), diff, out, ctx.silu_in,
+            ctx.with_ctx, ctx.needs_input_grad[0])
+        return dx, dw2, dw3, dcvec, dgates, None, None
+
+
+def fused_gated_conv(x, w2, w3, cvec, gates, silu_in: bool, with_ctx: bool):
+    """Train-mode fused transform + 3x3 conv + context conv + gate blend,
+    channels-last, differentiable in x, w2, w3, cvec and gates.
+
+    x:     (B, 2T, H, W, C) DART concat, clean frames [0, T), noisy [T, 2T);
+           float32 or bfloat16. With with_ctx=False: (B, F, H, W, C), F
+           independent frames (the just_2d step).
+    w2:    (3, 3, C, Co) normalized 2D weight, x's type
+    w3:    (2, 3, 3, C, Co) normalized context weight, index 0 = frame t-2
+    cvec:  (B, 2T, C) per-(frame, channel) scale in x's type, or None
+    gates: (B, 2T) fp32 per-frame gate
+    w3 and gates are unread (and may be None) when with_ctx is False.
+    Returns (B, 2T, H, W, Co) in x's type.
+    The CUDA kernels for CUDA tensors, the plain version for CPU tensors."""
+    if x.device.type == "cpu":
+        return fused_gated_conv_plain(x, w2, w3, cvec, gates, silu_in, with_ctx)
+    if not with_ctx:
+        w3 = gates = None
+    return _FusedGatedConv.apply(x, w2, w3, cvec, gates, bool(silu_in), bool(with_ctx))

@@ -23,7 +23,22 @@ Phases, each of which fails the run with a non-zero exit:
      frames (64 Heun steps, rho=2, sigma in [0.4, 80]) and re-primes 2
      frames at offset 10, with both kernels' launch counters zeroed before
      and read after; the counts must be 6 per prefill call for the
-     attention kernel and 17 per denoiser call for the decode Block.
+     attention kernel and 17 per denoiser call for the decode Block;
+  6. the train-mode fused gated conv, forward and backward kernels, against
+     their plain version (out, dx, dw2, dw3, dcvec, dgates) in fp32 and bf16
+     at every distinct (H, C, Co, silu_in, has_cvec, with_ctx) of the gym
+     model's causal convs at batch 8, T=8, and at one odd shape (24x40,
+     C=9, T=3, batch 1), with times of the kernels, the plain version and
+     the unfused cuDNN path (F.conv2d in the working type plus elementwise
+     ops, forward and backward by autograd), which the port never calls;
+     and the kernel's fp32 weight gradient against a float64 reference;
+  7. the training path: a small fp32 model's one-step gradients on the card
+     (kernels) against the same model on the CPU (plain versions); then the
+     full-width 46M gym model in a bf16 body, batch 8, T=8, seeded synthetic
+     latents, through create_train_state and make_train_step: three DART
+     steps and one just_2d step, with the conv launch counters zeroed before
+     and read after each step; both must equal the model's causal conv
+     count. Loss and gradients finite, unit-norm weights, EMA moved.
 Then it prints the `kernels` JSON line, the nvidia-smi line and, last,
 {"ok": true, "device": {...}}. It exits non-zero, printing no result, when
 no CUDA device is present or the port's package is not beside it.
@@ -47,6 +62,8 @@ TOL_FP32_ATTN = 1e-4   # max |diff|: the same fp32 arithmetic in another order
 TOL_FP32_BLOCK = 1e-3  # max |diff|: fp32 sums of up to 27*256 products
 TOL_BF16 = 1e-2        # std(diff)/std(ref): bf16 rounding of outputs and t0/t1
 TOL_E2E = 3e-4         # std(diff): the repo's parity bound
+TOL_GRAD = 3e-4        # std(diff)/std(ref) per gradient leaf, card vs CPU, fp32
+EPS32 = 6e-8           # fp32 unit roundoff
 
 
 def log(msg):
@@ -261,6 +278,306 @@ def e2e_phase(build_model, init_cache, overrides, label, ctx_frames):
 
 
 # ---------------------------------------------------------------------------
+# phase 6: the train-mode fused gated conv, forward and backward
+
+def conv_calls(cfg):
+    """[(module name, (H, C, Co, silu_in, has_cvec))] of every causal conv
+    of the model, in execution order."""
+    out = []
+    for side, name, spec in cfg.block_layout():
+        r, cin, co = spec["res"], spec["cin"], spec["cout"]
+        full = name if side == "out" else f"{side}_{name}"
+        if spec["kind"] == "conv":
+            out.append((full, (r, cin, co, False, False)))
+        else:
+            c0 = co if spec["flavor"] == "enc" else cin
+            out.append((f"{full}.conv_res0", (r, c0, co, True, False)))
+            out.append((f"{full}.conv_res1", (r, co, co, True, True)))
+    return out
+
+
+def conv_inputs(b, f, h, w, c, co, has_cv, with_ctx, dtype, seed):
+    from autoregressive_diffusion_tpu_torch.ops.numerics import mp_weight
+    dev = torch.device(DEV)
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rn(*s):
+        return torch.randn(s, generator=g, device=dev)
+
+    args = [rn(b, f, h, w, c).to(dtype), mp_weight(rn(3, 3, c, co)).to(dtype),
+            mp_weight(rn(2, 3, 3, c, co)).to(dtype) if with_ctx else None,
+            (1.0 + 0.3 * rn(b, f, c)).to(dtype) if has_cv else None,
+            (0.05 + 0.9 * torch.rand((b, f), generator=g, device=dev)) if with_ctx else None]
+    return args, rn(b, f, h, w, co).to(dtype)
+
+
+def unfused_cudnn_conv(x, w2, w3, cvec, gates, silu_in, with_ctx):
+    """The unfused path in the working type: elementwise transform, one
+    F.conv2d per frame, one F.conv2d over the two past clean frames stacked
+    on channels, gate blend. A yardstick only; the port never calls it."""
+    import torch.nn.functional as F
+    b, f, h, w, c = x.shape
+    a = x
+    if cvec is not None:
+        a = a * cvec[:, :, None, None, :]
+    if silu_in:
+        a = F.silu(a) / 0.596
+
+    def conv(inp, wt):
+        y = F.conv2d(inp.reshape((-1,) + tuple(inp.shape[2:])).permute(0, 3, 1, 2),
+                     wt.permute(3, 2, 0, 1), padding=1).permute(0, 2, 3, 1)
+        return y.reshape(tuple(inp.shape[:2]) + tuple(y.shape[1:]))
+
+    y2d = conv(a, w2)
+    if not with_ctx:
+        return y2d
+    t = f // 2
+    hist = torch.cat([torch.ones_like(a[:, :2]), a[:, :t - 1]], dim=1)
+    xs = torch.cat([hist[:, :t], hist[:, 1:t + 1]], dim=-1)
+    ctx = conv(xs, w3.permute(1, 2, 0, 3, 4).reshape(3, 3, 2 * c, -1))
+    ctx = torch.cat([ctx, ctx], dim=1)
+    g = gates.to(x.dtype)[:, :, None, None, None]
+    return (y2d + (ctx - y2d) * g) * ((1 - g) ** 2 + g ** 2) ** -0.5
+
+
+def conv_cost(b, f, h, w, c, co, has_cv, with_ctx, dtype):
+    """((forward operations, bytes), (backward operations, bytes)): a
+    multiply-add is two operations; each input read once, each output
+    written once (the forward's diff residual included)."""
+    t = f // 2
+    mac = b * h * w * c * co * 9
+    item = torch.tensor([], dtype=dtype).element_size()
+    n_x, n_o = b * f * h * w * c, b * f * h * w * co
+    n_w = 9 * c * co * (3 if with_ctx else 1)
+    n_cv = b * f * c if has_cv else 0
+    fwd = 2 * mac * (f + (2 * t if with_ctx else 0))
+    fwd_bytes = item * (n_x + n_w + n_cv + n_o * (2 if with_ctx else 1)) + 4 * b * f
+    # dx: every frame's 2D conv and the clean frames' context taps that
+    # exist; dw: every product of the forward pass, the ones frames' included
+    ctx_taps = max(t - 1, 0) + max(t - 2, 0) if with_ctx else 0
+    bwd = 2 * mac * (f + ctx_taps) + 2 * mac * (f + (2 * t if with_ctx else 0))
+    bwd_bytes = (item * (2 * n_x + 2 * n_w + 2 * n_cv + n_o * (3 if with_ctx else 1))
+                 + 8 * b * f)
+    return (fwd, fwd_bytes), (bwd, bwd_bytes)
+
+
+def conv_phase(fc, cfg, b=8, t=8):
+    calls = conv_calls(cfg)
+    gym = sorted(set(s for _, s in calls), key=lambda s: (-s[0], s[1], s[2], s[3], s[4]))
+    cases = [("gym", b, 2 * t if ctx else t, h, h, c, co, silu, cv, ctx)
+             for (h, c, co, silu, cv) in gym for ctx in (True, False)]
+    cases.append(("odd", 1, 6, 24, 40, 9, 32, True, True, True))
+    cases.append(("odd", 1, 3, 24, 40, 9, 32, True, True, False))
+    names = ("out", "dx", "dw2", "dw3", "dcvec", "dgates")
+    results = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        for i, (kind, bb, f, h, w, c, co, silu, has_cv, ctx) in enumerate(cases):
+            args, gout = conv_inputs(bb, f, h, w, c, co, has_cv, ctx, dtype, seed=100 + i)
+            sums = dict(out=27 * c if ctx else 9 * c, dx=27 * co if ctx else 9 * co,
+                        dw2=bb * f * h * w, dw3=bb * (f // 2) * h * w, dcvec=h * w * 27 * co,
+                        dgates=h * w * co)
+
+            def run(fn):
+                leaves = [None if a is None else a.detach().requires_grad_(True)
+                          for a in args]
+                out = fn(*leaves, silu, ctx)
+                out.backward(gout)
+                return [out.detach()] + [None if l is None else l.grad for l in leaves]
+
+            got = run(fc.fused_gated_conv)
+            want = run(fc.fused_gated_conv_plain)
+            torch.cuda.synchronize()
+            ok, errs, worst = True, {}, 0.0
+            for name, gg, ww in zip(names, got, want):
+                if ww is None and gg is None:
+                    continue
+                diff = gg.float() - ww.float()
+                max_abs = float(diff.abs().max())
+                ref_max = float(ww.float().abs().max())
+                worst = max(worst, max_abs)
+                if dtype == torch.float32:
+                    # the same fp32 products in another order: a random walk
+                    # of rounding errors over the length of the sum, each
+                    # step up to the unit roundoff of the largest value. 8
+                    # steps, because the plain version's cuDNN weight
+                    # gradient is the looser side: dw_float64_check holds
+                    # the kernel alone to 4 against a float64 reference.
+                    tol = max(1e-6, 8 * EPS32 * sums[name] ** 0.5 * ref_max)
+                    err, good = max_abs, max_abs <= tol
+                else:
+                    tol = TOL_BF16
+                    err = float(diff.std() / ww.float().std()) if ww.numel() > 1 else 0.0
+                    good = err <= tol
+                    if name == "dgates" and not good:
+                        # the kernel reads the residuals out and diff in bf16,
+                        # autograd keeps them in fp32: each of the H*W*Co
+                        # terms is off by up to 2^-9 of its size (about 1)
+                        tol = 4 * 2 ** -9 * sums[name] ** 0.5
+                        err, good = max_abs, max_abs <= tol
+                errs[name] = (err, tol)
+                ok = ok and good and bool(torch.isfinite(gg).all())
+            iters = 5
+
+            def fwd_only(fn):
+                with torch.no_grad():
+                    return fn(*args, silu, ctx)
+
+            ms_f = time_ms(lambda: fwd_only(fc.fused_gated_conv), iters, 1)
+            ms_fb = time_ms(lambda: run(fc.fused_gated_conv), iters, 1)
+            plain_f = time_ms(lambda: fwd_only(fc.fused_gated_conv_plain), iters, 1)
+            plain_fb = time_ms(lambda: run(fc.fused_gated_conv_plain), iters, 1)
+            unf_f = time_ms(lambda: fwd_only(unfused_cudnn_conv), iters, 1)
+            unf_fb = time_ms(lambda: run(unfused_cudnn_conv), iters, 1)
+            (ff, fb), (bf, bb_) = conv_cost(bb, f, h, w, c, co, has_cv, ctx, dtype)
+            bound_f, by_f = bound(ff, fb, dtype)
+            bound_b, by_b = bound(bf, bb_, dtype)
+            key = (kind, bb, f, h, w, c, co, silu, has_cv, ctx, dname)
+            # backward time = (forward + backward under autograd) - forward
+            results[key] = dict(
+                ok=bool(ok), max_abs_err=worst, errs=errs,
+                fwd_ms=ms_f, bwd_ms=max(ms_fb - ms_f, 0.0), plain_fwd_ms=plain_f,
+                plain_bwd_ms=max(plain_fb - plain_f, 0.0), unfused_fwd_ms=unf_f,
+                unfused_bwd_ms=max(unf_fb - unf_f, 0.0), bound_fwd_ms=bound_f,
+                bound_bwd_ms=bound_b, bound_fwd_by=by_f, bound_bwd_by=by_b)
+            r = results[key]
+            detail = " ".join(f"{n}={e:.2e}/{tl:.1e}" for n, (e, tl) in errs.items())
+            log(f"# conv {dname:8s} {kind} B={bb} F={f:2d} {h:2d}x{w:2d} C={c:3d} Co={co:3d} "
+                f"silu={int(silu)} cv={int(has_cv)} ctx={int(ctx)} ok={ok} {detail} | ms "
+                f"fwd={r['fwd_ms']:.3f} bwd={r['bwd_ms']:.3f} plain={plain_f:.3f}+"
+                f"{r['plain_bwd_ms']:.3f} unfused={unf_f:.3f}+{r['unfused_bwd_ms']:.3f} "
+                f"bound={bound_f:.4f}+{bound_b:.4f} ({by_f}, {by_b})")
+    return calls, results
+
+
+def dw_float64_check(fc):
+    """The fp32 weight gradient of the kernel and of the plain version, each
+    against a float64 reference (just_2d, batch 8 x 8 frames, 64x64, 64 -> 64
+    channels: sums of 262,144 products). The kernel is held to half the
+    bound that the kernel-against-plain comparison allows; the plain
+    version's error is logged beside it."""
+    import torch.nn.functional as F
+    b, f, h, c, co = 8, 8, 64, 64, 64
+    args, gout = conv_inputs(b, f, h, h, c, co, False, False, torch.float32, seed=7)
+
+    def dw2(fn):
+        w2 = args[1].detach().requires_grad_(True)
+        fn(args[0], w2, None, None, None, True, False).backward(gout)
+        return w2.grad.double()
+
+    x = args[0].float()
+    a = (torch.sigmoid(x) * x * (1.0 / 0.596)).double().reshape(b * f, h, h, c)
+    w64 = args[1].double().requires_grad_(True)
+    y = F.conv2d(a.permute(0, 3, 1, 2), w64.permute(3, 2, 0, 1), padding=1)
+    y.backward(gout.double().reshape(b * f, h, h, co).permute(0, 3, 1, 2))
+    ref = w64.grad
+    ref_max = float(ref.abs().max())
+    err_k = float((dw2(fc.fused_gated_conv) - ref).abs().max())
+    err_p = float((dw2(fc.fused_gated_conv_plain) - ref).abs().max())
+    tol = 4 * EPS32 * (b * f * h * h) ** 0.5 * ref_max
+    ok = err_k <= tol
+    log(f"# conv dw2 fp32 against float64 (max|ref|={ref_max:.1f}): kernel err={err_k:.3e} "
+        f"tol={tol:.3e} ok={ok}; plain version (cuDNN) err={err_p:.3e}")
+    return ok, err_k, err_p
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the training path
+
+def grad_parity_phase(build_trainer, edm2_loss, loss_cfg, overrides):
+    """One loss + backward of a small fp32 model on the card (kernels) and
+    on the CPU (plain versions) from the same weights, images, sigma and
+    noise; gradients compared leaf by leaf."""
+    g = torch.Generator().manual_seed(5)
+    grads = {}
+    b, t = 2, 3
+    for dev in (DEV, "cpu"):
+        state, _ = build_trainer(dev, torch.float32, seed=3, batch=b, **overrides)
+        cfg = state.model.cfg
+        if dev == DEV:
+            r, c = cfg.img_resolution, cfg.img_channels
+            images = torch.randn((b, t, r, r, c), generator=g)
+            sigma = torch.exp(torch.randn((b, 2 * t), generator=g) * 0.8)
+            noise = sigma[:, :, None, None, None] * torch.randn((b, 2 * t, r, r, c), generator=g)
+            cond = torch.zeros((b, t), dtype=torch.long)
+        loss, _ = edm2_loss(state.model, images.to(dev), 0, loss_cfg, cond.to(dev), state.coefs,
+                            sigma=sigma.to(dev), noise=noise.to(dev))
+        loss.backward()
+        grads[dev] = ({n: p.grad.detach().float().cpu() for n, p in
+                       state.model.named_parameters() if p.grad is not None}, float(loss.detach()))
+    (gk, loss_k), (gp, loss_p) = grads[DEV], grads["cpu"]
+    worst, worst_name = 0.0, ""
+    ok = set(gk) == set(gp) and abs(loss_k - loss_p) <= 1e-5 * max(1.0, abs(loss_p))
+    for n, ref in gp.items():
+        d = gk[n] - ref
+        if ref.numel() > 1:
+            err = float(d.std() / ref.std()) if float(ref.std()) > 0 else float(d.abs().max())
+        else:
+            err = float(d.abs() / ref.abs().clamp_min(1e-12))
+        if err > worst:
+            worst, worst_name = err, n
+    ok = ok and worst <= TOL_GRAD
+    log(f"# train grads, small fp32 model, card (kernels) vs CPU (plain): loss {loss_k:.6f} vs "
+        f"{loss_p:.6f}; {len(gp)} leaves, worst std(diff)/std(ref)={worst:.3e} ({worst_name}) "
+        f"tol={TOL_GRAD:.0e} ok={ok}")
+    return ok, worst
+
+
+def train_phase(build_trainer, synthetic_batch, run_steps, fc, n_convs):
+    dev = torch.device(DEV)
+    b, t = 8, 8
+    state, train_step = build_trainer(DEV, torch.bfloat16, seed=0, batch=b)
+    model = state.model
+    images, cond = synthetic_batch(model.cfg, b, t, 1, dev)
+    ema0 = {n: v.clone() for n, v in state.ema[0].items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fc.conv_fwd_launches = fc.conv_bwd_launches = 0
+    rows, failures, counts = [], [], []
+    for i in range(4):  # DART, DART, DART, just_2d
+        before = (fc.conv_fwd_launches, fc.conv_bwd_launches)
+        rows += run_steps(state, train_step, images, cond, 1, seed=0, just_2d_every=4)
+        counts.append((fc.conv_fwd_launches - before[0], fc.conv_bwd_launches - before[1]))
+        grads_finite = all(bool(torch.isfinite(p.grad).all()) for p in model.parameters())
+        r = rows[-1]
+        log(f"# train step {i} {'just_2d' if r['just_2d'] else 'dart':7s} loss={r['loss']:.4f} "
+            f"grad_norm={r['grad_norm']:.4f} grads_finite={grads_finite} "
+            f"step_ms={r['seconds'] * 1e3:.1f} samples_per_sec={r['samples_per_sec']:.3f} "
+            f"conv launches fwd={counts[-1][0]} bwd={counts[-1][1]} (want {n_convs})")
+        if not (r["loss"] == r["loss"] and abs(r["loss"]) < float("inf")) or not grads_finite:
+            failures.append(f"train step {i}: loss or gradients not finite")
+        if counts[-1] != (n_convs, n_convs):
+            failures.append(f"train step {i}: conv launches {counts[-1]} != {n_convs}")
+    launches = (fc.conv_fwd_launches, fc.conv_bwd_launches)
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    if [r["just_2d"] for r in rows] != [False, False, False, True]:
+        failures.append("train steps: expected three DART steps and one just_2d step")
+    worst_norm = 0.0
+    for n, p in model.named_parameters():
+        if n.rsplit(".", 1)[-1] == "w":
+            dims = tuple(range(p.ndim - 1))
+            fan_in = p[..., 0].numel()
+            norm = p.detach().float().pow(2).sum(dim=dims).sqrt() / fan_in ** 0.5
+            worst_norm = max(worst_norm, float((norm - 1).abs().max()))
+    if worst_norm > 1e-3:
+        failures.append(f"weights not unit norm after a step: {worst_norm:.2e}")
+    moved = sum(float((state.ema[0][n] - ema0[n]).abs().max()) > 0 for n in ema0)
+    if moved < 0.9 * len(ema0):
+        failures.append(f"EMA moved in {moved} of {len(ema0)} leaves only")
+    dart = [r for r in rows[1:] if not r["just_2d"]]
+    step_ms = 1e3 * sum(r["seconds"] for r in dart) / len(dart)
+    log(f"# train: {sum(p.numel() for p in model.parameters()) / 1e6:.1f}M params, bf16 body, "
+        f"batch {b}, T={t}: DART step {step_ms:.1f} ms ({b * 1e3 / step_ms:.3f} samples/s, "
+        f"steps 1-2; step 0 includes first-use costs {rows[0]['seconds'] * 1e3:.1f} ms), "
+        f"just_2d step {rows[3]['seconds'] * 1e3:.1f} ms, peak_mem_mb={peak_mb:.1f}, "
+        f"|norm-1| of w <= {worst_norm:.1e}, EMA moved {moved}/{len(ema0)}")
+    summary = dict(rows=rows, dart_step_ms=step_ms, dart_samples_per_sec=b * 1e3 / step_ms,
+                   just_2d_step_ms=rows[3]["seconds"] * 1e3, peak_mem_mb=peak_mb,
+                   launches_per_step=counts)
+    return failures, launches, summary
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -282,6 +599,9 @@ def main(argv=None):
     from autoregressive_diffusion_tpu_torch.ops import _build, masks
     from autoregressive_diffusion_tpu_torch.ops import flash_attention as fa
     from autoregressive_diffusion_tpu_torch.ops import fused_conv as fc
+    from autoregressive_diffusion_tpu_torch.train import (build_trainer, edm2_loss,
+                                                          run_steps, synthetic_batch)
+    from autoregressive_diffusion_tpu_torch.train.cli import GYM_LOSS
 
     t_start = time.perf_counter()
     smi = nvidia_smi_line()
@@ -352,6 +672,23 @@ def main(argv=None):
     if launches_a != want_a or launches_b != want_b:
         failures.append("launch counts")
 
+    # phase 6: the train-mode conv kernels
+    calls, conv_results = conv_phase(fc, gym)
+    failures += [f"fused conv {k}" for k, r in conv_results.items() if not r["ok"]]
+    ok_dw, dw_err_kernel, dw_err_plain = dw_float64_check(fc)
+    if not ok_dw:
+        failures.append("fused conv dw2 against float64")
+
+    # phase 7: the training path
+    ok_grads, grad_err = grad_parity_phase(build_trainer, edm2_loss, GYM_LOSS, tiny)
+    if not ok_grads:
+        failures.append("train gradients, card vs CPU")
+    del model
+    torch.cuda.empty_cache()
+    train_failures, (launches_cf, launches_cb), train_summary = train_phase(
+        build_trainer, synthetic_batch, run_steps, fc, len(calls))
+    failures += train_failures
+
     # the kernels line: main-path shapes in the main path's dtype (bf16)
     main_attn = next(r for r in attn_rows
                      if r["dtype"] == "bfloat16" and r["case"] == "ring off=0 t=8 F=64")
@@ -373,6 +710,35 @@ def main(argv=None):
                        > len(per_call) / 2 else "bytes"),
              library_ms=None, ok=all(r["ok"] for r in block_results.values())),
     ]
+    # the conv kernels: sums over the causal convs of one DART step (batch 8, T=8, bf16)
+    step_rows = [conv_results[("gym", 8, 16, h, h, c, co, silu, cv, True, "bfloat16")]
+                 for _, (h, c, co, silu, cv) in calls]
+    by_shape = {}
+    for (_, (h, c, co, _, _)), r in zip(calls, step_rows):
+        by_shape.setdefault((h, c, co), []).append(r)
+    for (h, c, co), rs in sorted(by_shape.items(), key=lambda kv: (-kv[0][0], kv[0][1:])):
+        mean = {k: sum(r[k] for r in rs) / len(rs) for k in rs[0] if k.endswith("_ms")}
+        log(f"# conv-step {h:2d}x{h:2d} C={c:3d} Co={co:3d} calls={len(rs):2d} ms a call: "
+            f"fwd={mean['fwd_ms']:.2f} bwd={mean['bwd_ms']:.2f} "
+            f"plain={mean['plain_fwd_ms']:.2f}+{mean['plain_bwd_ms']:.2f} "
+            f"unfused={mean['unfused_fwd_ms']:.2f}+{mean['unfused_bwd_ms']:.2f} "
+            f"bound={mean['bound_fwd_ms']:.3f}+{mean['bound_bwd_ms']:.3f}")
+    for which, src, line, n_launch in (("fwd", "fused_conv_fwd.cu", 784, launches_cf),
+                                       ("bwd", "fused_conv_bwd.cu", 879, launches_cb)):
+        by = [r[f"bound_{which}_by"] for r in step_rows]
+        kernels.append(dict(
+            name=f"fused_conv_{which}", route="cuda", source=f"{PKG}/csrc/{src}",
+            replaces=f"autoregressive_diffusion_tpu/ops/fused_conv.py:{line}",
+            launches=n_launch, max_abs_err=max(r["max_abs_err"] for r in step_rows),
+            ms=sum(r[f"{which}_ms"] for r in step_rows),
+            plain_ms=sum(r[f"plain_{which}_ms"] for r in step_rows),
+            bound_ms=sum(r[f"bound_{which}_ms"] for r in step_rows),
+            bound_by="operations" if by.count("operations") > len(by) / 2 else "bytes",
+            library_ms=None, ok=all(r["ok"] for r in conv_results.values())))
+    log(f"# fused_conv_fwd/bwd ms/plain_ms/bound_ms are sums over the {len(calls)} causal "
+        f"convs of one DART step (batch 8, T=8, bf16); the unfused cuDNN path takes "
+        f"{sum(r['unfused_fwd_ms'] for r in step_rows):.2f} + "
+        f"{sum(r['unfused_bwd_ms'] for r in step_rows):.2f} ms for the same convs")
     for k in kernels:
         if k["launches"] == 0:
             failures.append(f"{k['name']} never launched on the main path")
@@ -386,7 +752,13 @@ def main(argv=None):
                                     for k, v in block_results.items()],
                       e2e_full=e2e_full, rollout={k: v for k, v in out.items()
                                                   if k not in ("frames", "cache")},
-                      peak_mem_mb=peak_mb, kernels=kernels)
+                      peak_mem_mb=peak_mb, kernels=kernels,
+                      fused_conv=[dict(kind=k[0], B=k[1], F=k[2], H=k[3], W=k[4], C=k[5],
+                                       Co=k[6], silu_in=k[7], has_cvec=k[8], with_ctx=k[9],
+                                       dtype=k[10], **v) for k, v in conv_results.items()],
+                      conv_calls=[[n, list(sh)] for n, sh in calls],
+                      dw2_err_vs_float64=dict(kernel=dw_err_kernel, plain=dw_err_plain),
+                      train_grad_err=grad_err, train=train_summary)
         Path(args.out).write_text(json.dumps(detail, indent=1))
 
     log(f"# total {time.perf_counter() - t_start:.1f} s")

@@ -89,3 +89,107 @@ def test_wrappers_refuse_bad_inputs(cuda):
         fc.fused_decode_block(x, None, None, None, w, None, w, None,
                               torch.zeros((1, 16), device=cuda),
                               torch.zeros((1, 2), device=cuda), "enc", 0.3, None, False)
+
+
+# ---------------------------------------------------------------------------
+# train-mode fused gated conv: forward and backward kernels
+
+def conv_inputs(dev, dtype, b, t2, h, w, c, co, has_cv, with_ctx, seed=2):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rn(*s):
+        return torch.randn(s, generator=g, device=dev)
+
+    x = rn(b, t2, h, w, c).to(dtype)
+    w2 = mp_weight(rn(3, 3, c, co)).to(dtype)
+    w3 = mp_weight(rn(2, 3, 3, c, co)).to(dtype) if with_ctx else None
+    cv = (1 + 0.3 * rn(b, t2, c)).to(dtype) if has_cv else None
+    gates = (0.05 + 0.9 * torch.rand((b, t2), generator=g, device=dev)) if with_ctx else None
+    gout = rn(b, t2, h, w, co).to(dtype)
+    return [x, w2, w3, cv, gates], gout
+
+
+def conv_run(fn, args, gout, silu_in, with_ctx):
+    """(out, {name: grad}) of fn on fresh leaf copies of args."""
+    leaves = [None if a is None else a.detach().clone().requires_grad_(True) for a in args]
+    out = fn(*leaves, silu_in, with_ctx)
+    out.backward(gout)
+    names = ("dx", "dw2", "dw3", "dcvec", "dgates")
+    return out.detach(), {n: l.grad for n, l in zip(names, leaves) if l is not None}
+
+
+CONV_SHAPES = [  # b, 2T (or F), h, w, c, co
+    (2, 6, 16, 16, 32, 32), (1, 6, 24, 40, 9, 32), (2, 4, 8, 8, 96, 64),
+    (1, 8, 16, 16, 32, 8), (1, 2, 8, 8, 16, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", CONV_SHAPES)
+@pytest.mark.parametrize("silu_in,has_cv,with_ctx", [(True, True, True), (True, False, True),
+                                                     (False, False, True), (True, True, False),
+                                                     (False, False, False)])
+def test_fused_conv_kernels_match_plain(cuda, dtype, shape, silu_in, has_cv, with_ctx):
+    b, t2, h, w, c, co = shape
+    if not with_ctx:
+        t2 -= 1  # the just_2d step takes any frame count
+    args, gout = conv_inputs(cuda, dtype, b, t2, h, w, c, co, has_cv, with_ctx)
+    before = (fc.conv_fwd_launches, fc.conv_bwd_launches)
+    out_k, grads_k = conv_run(fc.fused_gated_conv, args, gout, silu_in, with_ctx)
+    assert (fc.conv_fwd_launches, fc.conv_bwd_launches) == (before[0] + 1, before[1] + 1)
+    out_p, grads_p = conv_run(fc.fused_gated_conv_plain, args, gout, silu_in, with_ctx)
+    torch.cuda.synchronize()
+    assert set(grads_k) == set(grads_p)
+    for name, got, want in [("out", out_k, out_p)] + [(n, grads_k[n], grads_p[n])
+                                                      for n in grads_p]:
+        assert got.shape == want.shape and got.dtype == want.dtype, name
+        if dtype == torch.float32:
+            # the same fp32 products summed in another order: sums of up to
+            # B*F*H*W terms (weight gradients), held relative to the largest
+            # reference value
+            tol = 2e-5 * max(1.0, float(want.abs().max()))
+            assert float((got - want).abs().max()) <= tol, name
+        elif name == "dgates":
+            # the kernel reads the residuals diff and out in bf16 where the
+            # plain version's autograd keeps them in fp32: each of the
+            # n = H*W*Co terms of a frame's sum is off by up to 2^-9 of its
+            # size (about 1), so the sum is held to 4 * 2^-9 * sqrt(n)
+            tol = 4 * 2 ** -9 * (h * w * co) ** 0.5
+            assert float((got - want).abs().max()) <= tol, name
+        else:
+            assert rel_err(got, want) <= 1e-2, name
+
+
+@pytest.mark.cuda
+def test_fused_conv_backward_is_the_forwards_derivative(cuda):
+    """Directional finite differences of the forward KERNEL against the
+    backward kernel's gradients, fp32, at a tiny shape."""
+    args, gout = conv_inputs(cuda, torch.float32, 1, 4, 8, 8, 9, 8, True, True, seed=3)
+    _, grads = conv_run(fc.fused_gated_conv, args, gout, True, True)
+    g = torch.Generator(device=cuda).manual_seed(4)
+    eps = 1e-2
+    for i, name in enumerate(("dx", "dw2", "dw3", "dcvec", "dgates")):
+        v = torch.randn(args[i].shape, generator=g, device=cuda)
+        v = v / v.norm()
+        vals = []
+        for sgn in (1, -1):
+            moved = list(args)
+            moved[i] = args[i] + sgn * eps * v
+            out = fc.fused_gated_conv(*moved, True, True)
+            vals.append(float((out.double() * gout.double()).sum()))
+        fd = (vals[0] - vals[1]) / (2 * eps)
+        an = float((grads[name].double() * v.double()).sum())
+        assert abs(fd - an) <= 2e-2 * max(1.0, abs(an)), (name, fd, an)
+
+
+@pytest.mark.cuda
+def test_fused_conv_refuses_bad_inputs(cuda):
+    args, _ = conv_inputs(cuda, torch.float32, 1, 4, 8, 8, 16, 16, True, True)
+    x, w2, w3, cv, gates = args
+    with pytest.raises(ValueError):  # odd frame count with the context branch
+        fc.fused_gated_conv(x[:, :3].contiguous(), w2, w3, None, gates[:, :3].contiguous(),
+                            True, True)
+    with pytest.raises(ValueError):  # not contiguous
+        fc.fused_gated_conv(x.transpose(2, 3), w2, w3, cv, gates, True, True)
+    with pytest.raises(ValueError):  # weights in another type
+        fc.fused_gated_conv(x, w2.bfloat16(), w3, cv, gates, True, True)

@@ -22,8 +22,19 @@ def test_import_leaves_jax_out():
             "import autoregressive_diffusion_tpu_torch.sampling\n"
             "import autoregressive_diffusion_tpu_torch.ops.flash_attention\n"
             "import autoregressive_diffusion_tpu_torch.ops.fused_conv\n"
+            "import autoregressive_diffusion_tpu_torch.train\n"
+            "import autoregressive_diffusion_tpu_torch.train.cli\n"
+            "import autoregressive_diffusion_tpu_torch.train.__main__\n"
+            "import autoregressive_diffusion_tpu_torch.train.loss\n"
+            "import autoregressive_diffusion_tpu_torch.train.loss_weight\n"
+            "import autoregressive_diffusion_tpu_torch.train.ema\n"
+            "import autoregressive_diffusion_tpu_torch.train.optim\n"
+            "import autoregressive_diffusion_tpu_torch.train.train_state\n"
+            "import autoregressive_diffusion_tpu_torch.utils.bridge\n"
+            "import autoregressive_diffusion_tpu_torch.utils.profiling\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
-            "       or m == 'flax' or m.startswith('autoregressive_diffusion_tpu.')\n"
+            "       or m == 'flax' or m.startswith('flax.') or m == 'optax'\n"
+            "       or m.startswith('autoregressive_diffusion_tpu.')\n"
             "       or m == 'autoregressive_diffusion_tpu']\n"
             "print(','.join(bad))\n")
     env = {**os.environ, "PYTHONPATH": str(ROOT)}
@@ -45,7 +56,8 @@ def test_no_module_names_the_jax_package():
                 names = [node.module or ""]
             for n in names:
                 root = n.split(".")[0]
-                assert root not in ("jax", "flax", "autoregressive_diffusion_tpu"), (path, n)
+                assert root not in ("jax", "flax", "optax",
+                                    "autoregressive_diffusion_tpu"), (path, n)
 
 
 def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
@@ -78,3 +90,42 @@ def test_cpu_tensors_take_the_plain_versions():
     assert bool(torch.isfinite(out["frames"]).all())
     assert out["cache"]["frames"] == 4
     assert (flash_attention.launches, fused_conv.launches) == before
+
+
+def test_every_port_module_is_on_the_isolation_list():
+    """The subprocess test above imports the train package and its entry
+    point by name; the AST test walks every file. A new module is covered by
+    the walk at once, and this test keeps the walk honest about train/."""
+    names = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
+    for want in ("train/__init__.py", "train/__main__.py", "train/cli.py", "train/loss.py",
+                 "train/loss_weight.py", "train/ema.py", "train/optim.py",
+                 "train/train_state.py", "utils/profiling.py"):
+        assert want in names, want
+
+
+def test_train_entry_point_defaults_to_the_card(monkeypatch, capsys):
+    from autoregressive_diffusion_tpu_torch.ops import fused_conv
+    from autoregressive_diffusion_tpu_torch.train import cli
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main(["--config", "tiny", "--steps", "1"])
+    before = (fused_conv.conv_fwd_launches, fused_conv.conv_bwd_launches)
+    cli.main(["--device", "cpu", "--config", "tiny", "--steps", "4", "--batch", "2",
+              "--frames", "3", "--dtype", "fp32"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert [("just_2d" in ln) for ln in lines[:4]] == [False, False, False, True]
+    summary = __import__("json").loads(lines[-1])
+    assert summary["device"] == "cpu" and summary["finite"] and summary["steps"] == 4
+    # on CPU tensors the wrapper ran its plain version: no launch was counted
+    assert (fused_conv.conv_fwd_launches, fused_conv.conv_bwd_launches) == before
+
+
+def test_train_mode_refuses_dropout():
+    from autoregressive_diffusion_tpu_torch.generate import build_model
+
+    model = build_model("cpu", torch.float32, img_resolution=16, img_channels=4,
+                        model_channels=16, channel_mult=(1,), num_blocks=1, dropout=0.1)
+    x = torch.zeros((1, 2, 16, 16, 4))
+    with pytest.raises(NotImplementedError, match="dropout"):
+        model(x, torch.ones((1, 2)), torch.zeros((1, 2), dtype=torch.long), mode="train")
