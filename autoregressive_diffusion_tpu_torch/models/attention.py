@@ -10,10 +10,15 @@ Counterpart of autoregressive_diffusion_tpu/models/attention.py:
     prefill kernel (ops/flash_attention.py); the t == 1 cached decode step
     is a plain two-dot biased joint softmax over the precomputed decode
     tables (decode_tables), as in the JAX package;
-  * train mode is dense attention under the DART mask over the S = 2*T*hw
-    tokens of the concat (ops/masks.train_frame_mask), the clean and noisy
-    replicas sharing RoPE positions; autograd differentiates it;
-  * just_2d and FrameAttention are per-frame dense attention.
+  * train mode is DART flash attention (ops/flash_attention.dart_attention)
+    over the S = 2*T*hw tokens of the concat, the clean and noisy replicas
+    sharing RoPE positions;
+  * just_2d and FrameAttention are unmasked flash attention within each
+    frame (ops/flash_attention.full_attention), frames folded into the
+    batch.
+On CUDA tensors these run the flash-attention kernels at every shape; the
+TPU package's shape gates (flash_supported, full_flash_supported, b*t >= 16)
+are TPU measurements and are not carried over.
 The qkv channel split is (s m c), as in the JAX package.
 """
 from __future__ import annotations
@@ -24,9 +29,9 @@ import einops
 import torch
 from torch import nn
 
-from ..ops.attention import dense_attention
-from ..ops.flash_attention import causal_frame_attention, prefill_cache_attention
-from ..ops.masks import expand_to_tokens, ring_slot_position, train_frame_mask
+from ..ops.flash_attention import (causal_frame_attention, dart_attention, full_attention,
+                                   prefill_cache_attention)
+from ..ops.masks import ring_slot_position
 from ..ops.numerics import mp_sum, normalize
 from ..ops.rope import apply_rope, rope_qk, rope_tables
 from .layers import MPConv
@@ -71,6 +76,14 @@ def _split_qkv(y: torch.Tensor, num_heads: int):
     return q, k, v
 
 
+def _per_frame_attention(q, k, v):
+    """Unmasked attention within each frame of (b, m, t, hw, c) q, k, v:
+    the frames fold into the kernel's batch, the heads stay its own."""
+    t = q.shape[2]
+    qf, kf, vf = (einops.rearrange(a, "b m t y c -> (b t) m y c") for a in (q, k, v))
+    return einops.rearrange(full_attention(qf, kf, vf), "(b t) m y c -> b m t y c", t=t)
+
+
 class VideoAttention(nn.Module):
     """Spatiotemporal self-attention over frames."""
 
@@ -90,7 +103,7 @@ class VideoAttention(nn.Module):
         hw = h * w
         q, k, v = _split_qkv(self.attn_qkv(x), self.num_heads)
         if just_2d:
-            o = dense_attention(q, k, v)  # (b, m, t) are batch dims
+            o = _per_frame_attention(q, k, v)
         elif mode == "train":
             o = self._train_attention(q, k, v, b, t, hw)
         else:
@@ -117,10 +130,8 @@ class VideoAttention(nn.Module):
         qs, ks = rope_qk(q.reshape(b, m, 2, t_half, hw, -1),
                          k.reshape(b, m, 2, t_half, hw, -1), pos, pos,
                          center=t_half // 2)
-        mask = torch.as_tensor(expand_to_tokens(train_frame_mask(t_half), hw),
-                               device=q.device)
-        o = dense_attention(qs.reshape(b, m, t * hw, -1), ks.reshape(b, m, t * hw, -1),
-                            v.reshape(b, m, t * hw, -1), mask)
+        o = dart_attention(qs.reshape(b, m, t * hw, -1), ks.reshape(b, m, t * hw, -1),
+                           v.reshape(b, m, t * hw, -1), t_half, hw)
         return o.reshape(b, m, t, hw, -1)
 
     def _eval_attention(self, q, k, v, cache, frames, b, t, hw):
@@ -177,7 +188,7 @@ class FrameAttention(nn.Module):
                 frames: int = 0, just_2d: bool = True, mode: str = "eval"):
         h, w = x.shape[2:4]
         q, k, v = _split_qkv(self.attn_qkv(x), self.num_heads)
-        o = dense_attention(q, k, v)
+        o = _per_frame_attention(q, k, v)
         y = einops.rearrange(o, "b m t (h w) c -> b t h w (m c)", h=h, w=w)
         y = self.attn_proj(y)
         return mp_sum(x, y, t=self.attn_balance), cache

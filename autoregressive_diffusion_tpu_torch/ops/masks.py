@@ -10,7 +10,9 @@ evaluates the same predicate from frame indices alone.
 The DART training mask (JAX package ops/masks.py train_frame_mask) is over
 a 2T-frame sequence, clean copy = frames [0, T), noisy copy = [T, 2T):
 clean query i attends clean frames <= i; noisy query i+T attends clean
-frames < i plus only itself in the noisy half.
+frames < i plus only itself in the noisy half. `frame_visible` states the
+same rule per (query frame, key frame) pair, as the flash-attention kernels
+(csrc/flash_tile.cuh) evaluate it.
 """
 from __future__ import annotations
 
@@ -49,6 +51,21 @@ def train_frame_mask(n_frames: int) -> np.ndarray:
     noisy_to_clean = (~clean_q) & clean_k & (k < q - t)
     noisy_self = (~clean_q) & (~clean_k) & (q == k)
     return both_clean | noisy_to_clean | noisy_self
+
+
+def frame_visible(kind: str, qf, kf, n_frames: int):
+    """Whether query frame qf sees key frame kf (ints or broadcastable
+    numpy integer arrays). "dart": the DART rule over 2T = 2*n_frames
+    frames, as the JAX package's DartMask (ops/flash_attention.py:47-54): a
+    clean query frame (qf < T) sees frames kf <= qf; a noisy one sees clean
+    frames kf < qf - T and itself. "full": every frame."""
+    qf, kf = np.asarray(qf), np.asarray(kf)
+    if kind == "full":
+        return np.ones(np.broadcast_shapes(qf.shape, kf.shape), bool)
+    if kind != "dart":
+        raise ValueError(f"unknown mask kind {kind!r}")
+    clean_q = qf < n_frames
+    return (clean_q & (kf <= qf)) | (~clean_q & ((kf == qf) | (kf < qf - n_frames)))
 
 
 def expand_to_tokens(frame_mask: np.ndarray, tokens_per_frame: int) -> np.ndarray:

@@ -36,6 +36,7 @@ TINY_CONFIG = dict(img_resolution=16, img_channels=4, model_channels=16,
                    channel_mult=(1, 2), num_blocks=1, max_frames=8, channels_per_head=16)
 GYM_LOSS = EDM2LossConfig(P_mean=1.2, P_std=1.0, context_noise_reduction=0.5)
 # kernel-name fragments for the profile's groups
+ATTENTION_KERNELS = ("flash_attn_",)  # csrc/flash_attention_{fwd,bwd}.cu
 CONV_BWD_KERNELS = ("dx_kernel", "dw_kernel", "dw_finalize", "dcv_finalize", "dgates_kernel",
                     "transpose_w_kernel")
 MATMUL_KERNELS = ("gemm", "cutlass", "softmax", "bmm", "xmma")
@@ -97,8 +98,9 @@ def profile_steps(state, train_step, images, cond, steps: int = 2, seed: int = 0
                   trace_path=None) -> dict:
     """torch.profiler over `steps` DART train steps: wall time, device busy
     time and idle share, launches, and device time by kernel group (conv
-    forward, conv backward, attention and other matrix products, optimizer
-    and elementwise), all per step. Writes a Chrome trace if asked."""
+    forward, conv backward, the flash-attention kernels, other matrix
+    products and softmax, optimizer and elementwise), all per step. Writes
+    a Chrome trace if asked."""
     from torch.profiler import ProfilerActivity, profile
 
     dev = images.device
@@ -115,10 +117,12 @@ def profile_steps(state, train_step, images, cond, steps: int = 2, seed: int = 0
         prof.export_chrome_trace(str(trace_path))
 
     w = window_summary(prof, wall, steps)
-    groups = {"conv_forward": 0.0, "conv_backward": 0.0, "matmul_attention": 0.0,
-              "optimizer_elementwise_other": 0.0}
+    groups = {"conv_forward": 0.0, "conv_backward": 0.0, "attention_kernels": 0.0,
+              "matmul_attention": 0.0, "optimizer_elementwise_other": 0.0}
     for key, us in kernel_times(prof).items():
-        if "fused_conv_fwd_kernel" in key:
+        if any(k in key for k in ATTENTION_KERNELS):
+            groups["attention_kernels"] += us
+        elif "fused_conv_fwd_kernel" in key:
             groups["conv_forward"] += us
         elif any(k in key for k in CONV_BWD_KERNELS):
             groups["conv_backward"] += us

@@ -13,6 +13,12 @@ Phases, each of which fails the run with a non-zero exit:
      offset 0, t_new=8, f_total=64; offset 10, t_new=2; wrapped ring at
      offset 60, t_new=8 -- in fp32 and bf16, with times of the kernel, the
      plain version and F.scaled_dot_product_attention on the same mask;
+  2b. the DART and full flash-attention kernels, forward and backward,
+     against their plain versions (o, lse, dq, dk, dv) in fp32 and bf16 at
+     every attention shape of the gym model's DART and just_2d training
+     steps (batch 8, T=8) and at one odd shape (T=3, hw=40, d=32, batch 1),
+     with times of the kernels, the plain versions and
+     F.scaled_dot_product_attention on the same mask, forward and backward;
   3. the fused decode-Block kernel against its plain version for every
      attention-free Block shape of the gym model, fp32 and bf16, with times;
   4. end to end against the plain versions: a small model and the
@@ -33,12 +39,16 @@ Phases, each of which fails the run with a non-zero exit:
      ops, forward and backward by autograd), which the port never calls;
      and the kernel's fp32 weight gradient against a float64 reference;
   7. the training path: a small fp32 model's one-step gradients on the card
-     (kernels) against the same model on the CPU (plain versions); then the
-     full-width 46M gym model in a bf16 body, batch 8, T=8, seeded synthetic
-     latents, through create_train_state and make_train_step: three DART
-     steps and one just_2d step, with the conv launch counters zeroed before
-     and read after each step; both must equal the model's causal conv
-     count. Loss and gradients finite, unit-norm weights, EMA moved.
+     (conv and attention kernels) against the same model on the CPU (plain
+     versions); then the full-width 46M gym model in a bf16 body, batch 8,
+     T=8, seeded synthetic latents, through create_train_state and
+     make_train_step: three DART steps and one just_2d step, with the conv
+     and attention launch counters zeroed before and read after each step;
+     the conv counts must equal the model's causal conv count, the attention
+     counts its attention layers (a DART step: one DART forward and backward
+     per video layer, one full per frame layer; a just_2d step: one full per
+     attention layer). Loss and gradients finite, unit-norm weights, EMA
+     moved.
 Then it prints the `kernels` JSON line, the nvidia-smi line and, last,
 {"ok": true, "device": {...}}. It exits non-zero, printing no result, when
 no CUDA device is present or the port's package is not beside it.
@@ -108,6 +118,20 @@ def compare(got, want, dtype, fp32_tol):
     return max_abs, rel, TOL_BF16, rel <= TOL_BF16
 
 
+FLASH_COUNTERS = ("dart_fwd_launches", "dart_bwd_launches", "full_fwd_launches",
+                  "full_bwd_launches")
+
+
+def flash_counts(fa):
+    """(dart fwd, dart bwd, full fwd, full bwd) launch counters."""
+    return tuple(getattr(fa, n) for n in FLASH_COUNTERS)
+
+
+def zero_flash_counts(fa):
+    for n in FLASH_COUNTERS:
+        setattr(fa, n, 0)
+
+
 # ---------------------------------------------------------------------------
 # phase 2: prefill attention
 
@@ -149,6 +173,124 @@ def attention_phase(fa, masks, F):
                 f"tol={tol:.0e} ok={ok} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
                 f"library_ms={lib_ms:.4f} bound_ms={bound_ms:.5f} ({bound_by})")
     return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 2b: DART and full flash attention, forward and backward
+
+def attention_calls(cfg, b, t, just_2d):
+    """[(kind, batch, heads, n_frames, hw, d)] of the flash-attention calls
+    of one training step of the model, in layer order: a DART step runs
+    DART attention over the 2T-frame concat in every video layer and full
+    attention per frame (b*2T frames) in every frame layer; a just_2d step
+    runs full attention per frame (b*T) in both."""
+    out = []
+    for _, _, spec in cfg.block_layout():
+        heads = cfg.num_heads(spec)
+        if not heads:
+            continue
+        hw, d = spec["res"] ** 2, spec["cout"] // heads
+        if spec["attention"] == "video" and not just_2d:
+            out.append(("dart", b, heads, t, hw, d))
+        else:
+            out.append(("full", b * (t if just_2d else 2 * t), heads, 1, hw, d))
+    return out
+
+
+def flash_cost(kind, b, heads, n_frames, hw, d, dtype, masks):
+    """((forward operations, bytes), (backward operations, bytes)) of one
+    call: a multiply-add is two operations, over the (query, key) pairs the
+    mask lets through; forward reads q, k, v and writes o and lse, backward
+    reads q, k, v, o, dO and lse and writes dq, dk, dv."""
+    if kind == "dart":
+        s = 2 * n_frames * hw
+        pairs = int(masks.train_frame_mask(n_frames).sum()) * hw * hw
+    else:
+        s = hw
+        pairs = s * s
+    bh = b * heads
+    item = torch.tensor([], dtype=dtype).element_size()
+    mat = bh * s * d * item
+    return ((4 * d * pairs * bh, 4 * mat + 4 * bh * s),
+            (10 * d * pairs * bh, 8 * mat + 4 * bh * s))
+
+
+def flash_tol(want, s):
+    """fp32: the same products and exponentials summed in another order, a
+    random walk of rounding errors over a sum of up to S terms, each step up
+    to the unit roundoff of the largest value (8 steps)."""
+    return 8 * EPS32 * s ** 0.5 * max(1.0, float(want.abs().max()))
+
+
+def flash_phase(fa, masks, F, cfg, b=8, t=8):
+    dev = torch.device(DEV)
+    gym = sorted(set(attention_calls(cfg, b, t, False) + attention_calls(cfg, b, t, True)))
+    cases = [("gym", c) for c in gym] + [("odd", ("dart", 1, 2, 3, 40, 32)),
+                                         ("odd", ("full", 3, 2, 1, 40, 32))]
+    results = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        for i, (label, shape) in enumerate(cases):
+            kind, bb, heads, n_frames, hw, d = shape
+            s = 2 * n_frames * hw if kind == "dart" else hw
+            g = torch.Generator(device=dev).manual_seed(200 + i)
+            q, k, v, do = (torch.randn((bb, heads, s, d), generator=g, device=dev)
+                           for _ in range(4))
+            qs, k, v, do = (q * d ** -0.5).to(dtype), k.to(dtype), v.to(dtype), do.to(dtype)
+            o, lse = fa.flash_attention_fwd(qs, k, v, kind, n_frames, hw)
+            o_p, lse_p = fa.flash_attention_fwd_plain(qs, k, v, kind, n_frames, hw)
+            grads = fa.flash_attention_bwd(qs, k, v, o_p, lse_p, do, kind, n_frames, hw)
+            grads_p = fa.flash_attention_bwd_plain(qs, k, v, o_p, lse_p, do, kind, n_frames, hw)
+            torch.cuda.synchronize()
+            ok, errs, worst = True, {}, 0.0
+            for name, got, want in zip(("o", "lse", "dq", "dk", "dv"), (o, lse) + grads,
+                                       (o_p, lse_p) + grads_p):
+                diff = got.float() - want.float()
+                max_abs = float(diff.abs().max())
+                worst = max(worst, max_abs)
+                if dtype == torch.float32 or name == "lse":  # lse is fp32 in both
+                    tol = flash_tol(want.float(), s)
+                    err = max_abs
+                else:
+                    tol = TOL_BF16
+                    err = float(diff.std() / want.float().std())
+                errs[name] = (err, tol)
+                ok = ok and err <= tol and bool(torch.isfinite(got).all())
+            mask = fa._token_mask(kind, n_frames, hw, s, dev)
+            leaves = [a.detach().requires_grad_(True) for a in (qs, k, v)]
+
+            def sdpa():
+                return F.scaled_dot_product_attention(*leaves, attn_mask=mask, scale=1.0)
+
+            def sdpa_fb():
+                sdpa().backward(do)
+
+            ms_f = time_ms(lambda: fa.flash_attention_fwd(qs, k, v, kind, n_frames, hw))
+            ms_b = time_ms(lambda: fa.flash_attention_bwd(qs, k, v, o, lse, do, kind,
+                                                          n_frames, hw))
+            plain_f = time_ms(lambda: fa.flash_attention_fwd_plain(qs, k, v, kind, n_frames, hw),
+                              10, 1)
+            plain_b = time_ms(lambda: fa.flash_attention_bwd_plain(qs, k, v, o, lse, do, kind,
+                                                                   n_frames, hw), 10, 1)
+            with torch.no_grad():
+                lib_f = time_ms(sdpa)
+            lib_fb = time_ms(sdpa_fb)
+            (ff, fb), (bf, bb_) = flash_cost(kind, bb, heads, n_frames, hw, d, dtype, masks)
+            bound_f, by_f = bound(ff, fb, dtype)
+            bound_b, by_b = bound(bf, bb_, dtype)
+            key = (label, shape, dname)
+            results[key] = dict(ok=bool(ok), max_abs_err=worst, errs=errs, fwd_ms=ms_f,
+                                bwd_ms=ms_b, plain_fwd_ms=plain_f, plain_bwd_ms=plain_b,
+                                library_fwd_ms=lib_f, library_bwd_ms=max(lib_fb - lib_f, 0.0),
+                                bound_fwd_ms=bound_f, bound_bwd_ms=bound_b,
+                                bound_fwd_by=by_f, bound_bwd_by=by_b)
+            r = results[key]
+            detail = " ".join(f"{n}={e:.2e}/{tl:.1e}" for n, (e, tl) in errs.items())
+            log(f"# flash {dname:8s} {label} {kind} b={bb} h={heads} S={s} hw={hw} d={d} "
+                f"ok={ok} {detail} | ms fwd={ms_f:.4f} bwd={ms_b:.4f} "
+                f"plain={plain_f:.4f}+{plain_b:.4f} sdpa={lib_f:.4f}+{r['library_bwd_ms']:.4f} "
+                f"bound={bound_f:.5f}+{bound_b:.5f} ({by_f}, {by_b})")
+    return results
 
 
 # ---------------------------------------------------------------------------
@@ -484,12 +626,14 @@ def dw_float64_check(fc):
 # ---------------------------------------------------------------------------
 # phase 7: the training path
 
-def grad_parity_phase(build_trainer, edm2_loss, loss_cfg, overrides):
+def grad_parity_phase(build_trainer, edm2_loss, loss_cfg, overrides, fa):
     """One loss + backward of a small fp32 model on the card (kernels) and
     on the CPU (plain versions) from the same weights, images, sigma and
-    noise; gradients compared leaf by leaf."""
+    noise; gradients compared leaf by leaf. The model has video and frame
+    attention layers, and the card's run must launch both flash kernels."""
     g = torch.Generator().manual_seed(5)
     grads = {}
+    zero_flash_counts(fa)
     b, t = 2, 3
     for dev in (DEV, "cpu"):
         state, _ = build_trainer(dev, torch.float32, seed=3, batch=b, **overrides)
@@ -505,9 +649,12 @@ def grad_parity_phase(build_trainer, edm2_loss, loss_cfg, overrides):
         loss.backward()
         grads[dev] = ({n: p.grad.detach().float().cpu() for n, p in
                        state.model.named_parameters() if p.grad is not None}, float(loss.detach()))
+        if dev == DEV:
+            counts = flash_counts(fa)
     (gk, loss_k), (gp, loss_p) = grads[DEV], grads["cpu"]
     worst, worst_name = 0.0, ""
     ok = set(gk) == set(gp) and abs(loss_k - loss_p) <= 1e-5 * max(1.0, abs(loss_p))
+    ok = ok and all(c > 0 for c in counts)
     for n, ref in gp.items():
         d = gk[n] - ref
         if ref.numel() > 1:
@@ -519,36 +666,49 @@ def grad_parity_phase(build_trainer, edm2_loss, loss_cfg, overrides):
     ok = ok and worst <= TOL_GRAD
     log(f"# train grads, small fp32 model, card (kernels) vs CPU (plain): loss {loss_k:.6f} vs "
         f"{loss_p:.6f}; {len(gp)} leaves, worst std(diff)/std(ref)={worst:.3e} ({worst_name}) "
-        f"tol={TOL_GRAD:.0e} ok={ok}")
+        f"tol={TOL_GRAD:.0e}; flash dart fwd/bwd, full fwd/bwd launches {counts} ok={ok}")
     return ok, worst
 
 
-def train_phase(build_trainer, synthetic_batch, run_steps, fc, n_convs):
+def train_phase(build_trainer, synthetic_batch, run_steps, fc, fa, n_convs):
+    from autoregressive_diffusion_tpu_torch.models.attention import (FrameAttention,
+                                                                     VideoAttention)
     dev = torch.device(DEV)
     b, t = 8, 8
     state, train_step = build_trainer(DEV, torch.bfloat16, seed=0, batch=b)
     model = state.model
+    n_video = sum(isinstance(m, VideoAttention) for m in model.modules())
+    n_frame = sum(isinstance(m, FrameAttention) for m in model.modules())
+    want_flash = {False: (n_video, n_video, n_frame, n_frame),  # DART step
+                  True: (0, 0, n_video + n_frame, n_video + n_frame)}  # just_2d step
     images, cond = synthetic_batch(model.cfg, b, t, 1, dev)
     ema0 = {n: v.clone() for n, v in state.ema[0].items()}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fc.conv_fwd_launches = fc.conv_bwd_launches = 0
-    rows, failures, counts = [], [], []
+    zero_flash_counts(fa)
+    rows, failures, counts, flash = [], [], [], []
     for i in range(4):  # DART, DART, DART, just_2d
         before = (fc.conv_fwd_launches, fc.conv_bwd_launches)
+        before_flash = flash_counts(fa)
         rows += run_steps(state, train_step, images, cond, 1, seed=0, just_2d_every=4)
         counts.append((fc.conv_fwd_launches - before[0], fc.conv_bwd_launches - before[1]))
+        flash.append(tuple(a - c for a, c in zip(flash_counts(fa), before_flash)))
         grads_finite = all(bool(torch.isfinite(p.grad).all()) for p in model.parameters())
         r = rows[-1]
         log(f"# train step {i} {'just_2d' if r['just_2d'] else 'dart':7s} loss={r['loss']:.4f} "
             f"grad_norm={r['grad_norm']:.4f} grads_finite={grads_finite} "
             f"step_ms={r['seconds'] * 1e3:.1f} samples_per_sec={r['samples_per_sec']:.3f} "
-            f"conv launches fwd={counts[-1][0]} bwd={counts[-1][1]} (want {n_convs})")
+            f"conv launches fwd={counts[-1][0]} bwd={counts[-1][1]} (want {n_convs}); "
+            f"flash dart fwd/bwd, full fwd/bwd {flash[-1]} (want {want_flash[r['just_2d']]})")
         if not (r["loss"] == r["loss"] and abs(r["loss"]) < float("inf")) or not grads_finite:
             failures.append(f"train step {i}: loss or gradients not finite")
         if counts[-1] != (n_convs, n_convs):
             failures.append(f"train step {i}: conv launches {counts[-1]} != {n_convs}")
-    launches = (fc.conv_fwd_launches, fc.conv_bwd_launches)
+        if flash[-1] != want_flash[r["just_2d"]]:
+            failures.append(f"train step {i}: flash launches {flash[-1]} != "
+                            f"{want_flash[r['just_2d']]}")
+    launches = (fc.conv_fwd_launches, fc.conv_bwd_launches) + flash_counts(fa)
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
     if [r["just_2d"] for r in rows] != [False, False, False, True]:
         failures.append("train steps: expected three DART steps and one just_2d step")
@@ -573,7 +733,7 @@ def train_phase(build_trainer, synthetic_batch, run_steps, fc, n_convs):
         f"|norm-1| of w <= {worst_norm:.1e}, EMA moved {moved}/{len(ema0)}")
     summary = dict(rows=rows, dart_step_ms=step_ms, dart_samples_per_sec=b * 1e3 / step_ms,
                    just_2d_step_ms=rows[3]["seconds"] * 1e3, peak_mem_mb=peak_mb,
-                   launches_per_step=counts)
+                   launches_per_step=counts, flash_launches_per_step=flash)
     return failures, launches, summary
 
 
@@ -625,6 +785,8 @@ def main(argv=None):
     failures += [f"attention {r['dtype']} {r['case']}" for r in attn_rows if not r["ok"]]
 
     gym = UNetConfig(**GYM_CONFIG)
+    flash_results = flash_phase(fa, masks, F, gym)
+    failures += [f"flash attention {k}" for k, r in flash_results.items() if not r["ok"]]
     shapes, block_results = decode_block_phase(fc, gym)
     failures += [f"decode block {k}" for k, r in block_results.items() if not r["ok"]]
 
@@ -643,19 +805,24 @@ def main(argv=None):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     bench_iters, n_gen, n_steps = 20, 2, 64
-    fa.launches = 0
-    fc.launches = 0
+    fa.launches = fc.launches = 0
+    zero_flash_counts(fa)
     out = rollout(model, context_frames=8, gen_frames=n_gen, num_steps=n_steps,
                   sigma_max=80.0, sigma_min=0.4, rho=2.0, reprime_frames=2,
                   bench_iters=bench_iters, seed=0)
     torch.cuda.synchronize()
     launches_a, launches_b = fa.launches, fc.launches
+    rollout_flash = flash_counts(fa)
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
     frames = out["frames"]
     denoiser_calls = 1 + bench_iters + n_gen * (2 * n_steps - 1)
     n_video = sum(1 for _, _, sp in gym.block_layout()
                   if sp.get("attention") == "video" and gym.num_heads(sp))
     want_a, want_b = n_video * 2, len(shapes) * denoiser_calls  # gym: 6 and 17
+    n_frame = sum(1 for _, _, sp in gym.block_layout()
+                  if sp.get("attention") == "frame" and gym.num_heads(sp))
+    model_calls = denoiser_calls + 2  # and the prefill and the re-prime
+    want_flash = (0, 0, n_frame * model_calls, 0)
     finite = bool(torch.isfinite(frames).all())
     log(f"# rollout: {n_params / 1e6:.1f}M params bf16, frames {tuple(frames.shape)} "
         f"finite={finite} cache frames={out['cache']['frames']} "
@@ -663,13 +830,15 @@ def main(argv=None):
         f"rollout_frames_per_sec={out['rollout_frames_per_sec']:.4f} "
         f"reprime_s={out['reprime_s']:.4f} peak_mem_mb={peak_mb:.1f}")
     log(f"# launches: prefill attention {launches_a} (want {want_a}), "
-        f"decode block {launches_b} (want {want_b} = {len(shapes)} x {denoiser_calls} calls)")
+        f"decode block {launches_b} (want {want_b} = {len(shapes)} x {denoiser_calls} calls), "
+        f"flash dart fwd/bwd, full fwd/bwd {rollout_flash} (want {want_flash}: "
+        f"{n_frame} frame layers x {model_calls} model calls)")
     res, ch = gym.img_resolution, gym.img_channels
     if not finite or tuple(frames.shape) != (1, n_gen, res, res, ch):
         failures.append("rollout output")
     if out["cache"]["frames"] != 12:
         failures.append(f"cache frame counter {out['cache']['frames']} != 12")
-    if launches_a != want_a or launches_b != want_b:
+    if launches_a != want_a or launches_b != want_b or rollout_flash != want_flash:
         failures.append("launch counts")
 
     # phase 6: the train-mode conv kernels
@@ -680,13 +849,15 @@ def main(argv=None):
         failures.append("fused conv dw2 against float64")
 
     # phase 7: the training path
-    ok_grads, grad_err = grad_parity_phase(build_trainer, edm2_loss, GYM_LOSS, tiny)
+    ok_grads, grad_err = grad_parity_phase(build_trainer, edm2_loss, GYM_LOSS, tiny, fa)
     if not ok_grads:
         failures.append("train gradients, card vs CPU")
     del model
     torch.cuda.empty_cache()
-    train_failures, (launches_cf, launches_cb), train_summary = train_phase(
-        build_trainer, synthetic_batch, run_steps, fc, len(calls))
+    train_failures, train_launches, train_summary = train_phase(
+        build_trainer, synthetic_batch, run_steps, fc, fa, len(calls))
+    launches_cf, launches_cb = train_launches[:2]
+    train_flash = train_launches[2:]
     failures += train_failures
 
     # the kernels line: main-path shapes in the main path's dtype (bf16)
@@ -739,6 +910,31 @@ def main(argv=None):
         f"convs of one DART step (batch 8, T=8, bf16); the unfused cuDNN path takes "
         f"{sum(r['unfused_fwd_ms'] for r in step_rows):.2f} + "
         f"{sum(r['unfused_bwd_ms'] for r in step_rows):.2f} ms for the same convs")
+    # the flash kernels: sums over the attention layers of one DART step
+    # (batch 8, T=8, bf16); launches over the rollout and the four steps
+    dart_step = attention_calls(gym, 8, 8, False)
+    flash_launches = {"dart_fwd": train_flash[0], "dart_bwd": train_flash[1],
+                      "full_fwd": rollout_flash[2] + train_flash[2], "full_bwd": train_flash[3]}
+    for mask_kind, line in (("dart", 177), ("full", 224)):
+        rs = [flash_results[("gym", c, "bfloat16")] for c in dart_step if c[0] == mask_kind]
+        for which in ("fwd", "bwd"):
+            by = [r[f"bound_{which}_by"] for r in rs]
+            kernels.append(dict(
+                name=f"{mask_kind}_attention_{which}", route="cuda",
+                source=f"{PKG}/csrc/flash_attention_{which}.cu",
+                replaces=f"autoregressive_diffusion_tpu/ops/flash_attention.py:{line}",
+                launches=flash_launches[f"{mask_kind}_{which}"],
+                max_abs_err=max(r["max_abs_err"] for r in rs),
+                ms=sum(r[f"{which}_ms"] for r in rs),
+                plain_ms=sum(r[f"plain_{which}_ms"] for r in rs),
+                bound_ms=sum(r[f"bound_{which}_ms"] for r in rs),
+                bound_by="operations" if by.count("operations") > len(by) / 2 else "bytes",
+                library_ms=sum(r[f"library_{which}_ms"] for r in rs),
+                ok=all(r["ok"] for r in flash_results.values())))
+    log(f"# dart/full_attention ms/plain_ms/bound_ms/library_ms are sums over the "
+        f"{len(dart_step)} attention layers of one DART step (batch 8, T=8, bf16; "
+        f"library: F.scaled_dot_product_attention on the same mask); launches: "
+        f"rollout {rollout_flash}, training {tuple(train_flash)} (dart fwd/bwd, full fwd/bwd)")
     for k in kernels:
         if k["launches"] == 0:
             failures.append(f"{k['name']} never launched on the main path")
@@ -758,6 +954,8 @@ def main(argv=None):
                                        dtype=k[10], **v) for k, v in conv_results.items()],
                       conv_calls=[[n, list(sh)] for n, sh in calls],
                       dw2_err_vs_float64=dict(kernel=dw_err_kernel, plain=dw_err_plain),
+                      flash_attention=[dict(kind=k[0], shape=list(k[1]), dtype=k[2], **v)
+                                       for k, v in flash_results.items()],
                       train_grad_err=grad_err, train=train_summary)
         Path(args.out).write_text(json.dumps(detail, indent=1))
 

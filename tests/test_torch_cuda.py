@@ -2,7 +2,8 @@
 
 Marked `cuda`: without a CUDA device each test skips with the reason (the
 kernels have no CPU mode; their plain versions are held against the JAX
-package in test_torch_ops.py and test_torch_decode_block.py). On the card
+package in test_torch_ops.py, test_torch_decode_block.py,
+test_torch_fused_conv.py and test_torch_flash_attention.py). On the card
 (tests/conftest.py sets up JAX, which these tests do not need):
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -193,3 +194,129 @@ def test_fused_conv_refuses_bad_inputs(cuda):
         fc.fused_gated_conv(x.transpose(2, 3), w2, w3, cv, gates, True, True)
     with pytest.raises(ValueError):  # weights in another type
         fc.fused_gated_conv(x, w2.bfloat16(), w3, cv, gates, True, True)
+
+
+# ---------------------------------------------------------------------------
+# DART and full flash attention: forward and backward kernels
+
+EPS32 = 6e-8  # fp32 unit roundoff
+
+FLASH_SHAPES = [  # kind, b, heads, n_frames, hw, d  (full: S = hw)
+    ("dart", 8, 4, 8, 64, 64),     # gym video layer, S = 1024
+    ("full", 128, 2, 1, 256, 64),  # gym frame layer
+    ("full", 64, 4, 1, 64, 64),    # gym just_2d video layer
+    ("dart", 1, 2, 3, 40, 32),     # odd: hw not a multiple of the tile
+    ("full", 3, 2, 1, 40, 32),
+    ("dart", 2, 2, 2, 16, 16),
+    ("dart", 1, 1, 2, 48, 128),
+]
+
+
+def flash_inputs(dev, dtype, kind, b, heads, n_frames, hw, d, seed=5):
+    s = 2 * n_frames * hw if kind == "dart" else hw
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, do = (torch.randn((b, heads, s, d), generator=g, device=dev) for _ in range(4))
+    return (q * d ** -0.5).to(dtype), k.to(dtype), v.to(dtype), do.to(dtype)
+
+
+def flash_tol(want, s):
+    """fp32: the same products and exponentials summed in another order, a
+    random walk of rounding errors over a sum of up to S terms, each step up
+    to the unit roundoff of the largest value."""
+    return 8 * EPS32 * s ** 0.5 * max(1.0, float(want.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
+def test_flash_kernels_match_plain(cuda, dtype, shape):
+    kind, b, heads, n_frames, hw, d = shape
+    qs, k, v, do = flash_inputs(cuda, dtype, kind, *shape[1:])
+    s = qs.shape[2]
+    before = (fa.dart_fwd_launches, fa.dart_bwd_launches, fa.full_fwd_launches,
+              fa.full_bwd_launches)
+    o, lse = fa.flash_attention_fwd(qs, k, v, kind, n_frames, hw)
+    o_p, lse_p = fa.flash_attention_fwd_plain(qs, k, v, kind, n_frames, hw)
+    got = fa.flash_attention_bwd(qs, k, v, o_p, lse_p, do, kind, n_frames, hw)
+    want = fa.flash_attention_bwd_plain(qs, k, v, o_p, lse_p, do, kind, n_frames, hw)
+    torch.cuda.synchronize()
+    after = (fa.dart_fwd_launches, fa.dart_bwd_launches, fa.full_fwd_launches,
+             fa.full_bwd_launches)
+    step = (1, 1, 0, 0) if kind == "dart" else (0, 0, 1, 1)
+    assert after == tuple(a + s_ for a, s_ in zip(before, step))
+    assert lse.dtype == torch.float32 and lse.shape == lse_p.shape
+    assert float((lse - lse_p).abs().max()) <= flash_tol(lse_p, s)
+    for name, a, w in [("o", o, o_p), ("dq", got[0], want[0]), ("dk", got[1], want[1]),
+                       ("dv", got[2], want[2])]:
+        assert a.shape == w.shape and a.dtype == w.dtype == dtype, name
+        assert bool(torch.isfinite(a).all()), name
+        if dtype == torch.float32:
+            assert float((a - w).abs().max()) <= flash_tol(w, s), name
+        else:
+            assert rel_err(a, w) <= 1e-2, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,n_frames,hw", [("dart", 2, 40), ("full", 1, 40)])
+def test_flash_backward_is_the_forwards_derivative(cuda, kind, n_frames, hw):
+    """Directional finite differences of the forward KERNEL against the
+    backward kernels' gradients, fp32."""
+    qs, k, v, do = flash_inputs(cuda, torch.float32, kind, 1, 2, n_frames, hw, 32, seed=6)
+    o, lse = fa.flash_attention_fwd(qs, k, v, kind, n_frames, hw)
+    grads = fa.flash_attention_bwd(qs, k, v, o, lse, do, kind, n_frames, hw)
+    g = torch.Generator(device=cuda).manual_seed(7)
+    eps = 1e-2
+    args = [qs, k, v]
+    for i, name in enumerate(("dq", "dk", "dv")):
+        dirn = torch.randn(args[i].shape, generator=g, device=cuda)
+        dirn = dirn / dirn.norm()
+        vals = []
+        for sgn in (1, -1):
+            moved = list(args)
+            moved[i] = args[i] + sgn * eps * dirn
+            out, _ = fa.flash_attention_fwd(*moved, kind, n_frames, hw)
+            vals.append(float((out.double() * do.double()).sum()))
+        fd = (vals[0] - vals[1]) / (2 * eps)
+        an = float((grads[i].double() * dirn.double()).sum())
+        assert abs(fd - an) <= 2e-2 * max(1.0, abs(an)), (name, fd, an)
+
+
+@pytest.mark.cuda
+def test_flash_attention_refuses_bad_inputs(cuda):
+    qs, k, v, do = flash_inputs(cuda, torch.float32, "dart", 1, 2, 2, 16, 32)
+    with pytest.raises(ValueError):  # half precision
+        fa.flash_attention_fwd(qs.half(), k.half(), v.half(), "dart", 2, 16)
+    with pytest.raises(ValueError):  # S is not 2 * n_frames * hw
+        fa.flash_attention_fwd(qs, k, v, "dart", 3, 16)
+    with pytest.raises(ValueError):  # not contiguous
+        fa.flash_attention_fwd(qs.transpose(2, 3), k.transpose(2, 3), v.transpose(2, 3),
+                               "full", 1, 32)
+    with pytest.raises(ValueError):  # k in another type
+        fa.flash_attention_fwd(qs, k.bfloat16(), v, "full", 1, 64)
+    with pytest.raises(ValueError):  # head dim 48
+        x = torch.zeros((1, 1, 64, 48), device=cuda)
+        fa.flash_attention_fwd(x, x, x, "full", 1, 64)
+    o, lse = fa.flash_attention_fwd(qs, k, v, "dart", 2, 16)
+    with pytest.raises(ValueError):  # lse of the wrong shape
+        fa.flash_attention_bwd(qs, k, v, o, lse[:, :, :-1].contiguous(), do, "dart", 2, 16)
+    with pytest.raises(ValueError):  # a CPU tensor among CUDA ones
+        fa.flash_attention_bwd(qs, k, v, o, lse, do.cpu(), "dart", 2, 16)
+
+
+@pytest.mark.cuda
+def test_flash_attention_autograd_through_the_kernels(cuda):
+    """dart_attention and full_attention under autograd on the card run the
+    kernels, and their gradients equal the plain path's (run on the CPU)."""
+    qs, k, v, do = flash_inputs(cuda, torch.float32, "dart", 1, 2, 3, 40, 32, seed=8)
+    for fn, args in ((fa.dart_attention, (3, 40)), (fa.full_attention, ())):
+        grads = {}
+        for dev in ("cuda", "cpu"):
+            leaves = [a.detach().to(dev).requires_grad_(True) for a in (qs, k, v)]
+            before = fa.dart_bwd_launches + fa.full_bwd_launches
+            out = fn(*leaves, *args)
+            out.backward(do.to(dev))
+            if dev == "cuda":
+                assert fa.dart_bwd_launches + fa.full_bwd_launches == before + 1
+            grads[dev] = [out.detach().cpu()] + [l.grad.cpu() for l in leaves]
+        for a, w in zip(grads["cuda"], grads["cpu"]):
+            assert float((a - w).abs().max()) <= flash_tol(w, qs.shape[2])

@@ -18,7 +18,6 @@ from autoregressive_diffusion_tpu.ops import masks as jmasks
 from autoregressive_diffusion_tpu.ops import numerics as jnx
 from autoregressive_diffusion_tpu.ops import rope as jrope
 from autoregressive_diffusion_tpu_torch.models import attention as tattn
-from autoregressive_diffusion_tpu_torch.ops import attention as tatt
 from autoregressive_diffusion_tpu_torch.ops import flash_attention as tfa
 from autoregressive_diffusion_tpu_torch.ops import masks as tmasks
 from autoregressive_diffusion_tpu_torch.ops import numerics as tnx
@@ -128,12 +127,13 @@ def test_prefill_frame_mask_matches_jax_mask(t_new, f_total, offset):
 
 
 def test_dense_attention(rng):
+    """The port's unmasked attention (the flash kernels' plain version, over
+    any leading batch dims) against the JAX package's dense attention."""
     q, k, v = (rng.normal(size=(2, 3, 12, 16)).astype(np.float32) for _ in range(3))
-    mask = rng.uniform(size=(12, 12)) > 0.3
-    mask[:, 0] = True
-    want = jatt.dense_attention(*(jnp.asarray(a) for a in (q, k, v)), jnp.asarray(mask))
-    got = tatt.dense_attention(*(torch.from_numpy(a) for a in (q, k, v)),
-                               torch.from_numpy(mask))
+    want = jatt.dense_attention(*(jnp.asarray(a) for a in (q, k, v)))
+    qs = torch.from_numpy(q) / 4.0  # pre-scaled by 1/sqrt(16)
+    got, _ = tfa.flash_attention_fwd_plain(qs, *(torch.from_numpy(a) for a in (k, v)),
+                                           "full", 1, 12)
     assert maxdiff(want, got) < 1e-5
 
 

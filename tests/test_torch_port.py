@@ -84,12 +84,16 @@ def test_cpu_tensors_take_the_plain_versions():
     model = build_model("cpu", torch.float32, img_resolution=16, img_channels=4,
                         model_channels=16, channel_mult=(1, 2), num_blocks=1,
                         max_frames=8, channels_per_head=16)
-    before = (flash_attention.launches, fused_conv.launches)
+    def counts():
+        return (flash_attention.launches, flash_attention.full_fwd_launches,
+                fused_conv.launches)
+
+    before = counts()
     out = rollout(model, context_frames=2, gen_frames=1, num_steps=2,
                   reprime_frames=1, bench_iters=1)
     assert bool(torch.isfinite(out["frames"]).all())
     assert out["cache"]["frames"] == 4
-    assert (flash_attention.launches, fused_conv.launches) == before
+    assert counts() == before
 
 
 def test_every_port_module_is_on_the_isolation_list():
@@ -104,21 +108,26 @@ def test_every_port_module_is_on_the_isolation_list():
 
 
 def test_train_entry_point_defaults_to_the_card(monkeypatch, capsys):
-    from autoregressive_diffusion_tpu_torch.ops import fused_conv
+    from autoregressive_diffusion_tpu_torch.ops import flash_attention, fused_conv
     from autoregressive_diffusion_tpu_torch.train import cli
+
+    def counts():
+        return (fused_conv.conv_fwd_launches, fused_conv.conv_bwd_launches,
+                flash_attention.dart_fwd_launches, flash_attention.dart_bwd_launches,
+                flash_attention.full_fwd_launches, flash_attention.full_bwd_launches)
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cli.main(["--config", "tiny", "--steps", "1"])
-    before = (fused_conv.conv_fwd_launches, fused_conv.conv_bwd_launches)
+    before = counts()
     cli.main(["--device", "cpu", "--config", "tiny", "--steps", "4", "--batch", "2",
               "--frames", "3", "--dtype", "fp32"])
     lines = capsys.readouterr().out.strip().splitlines()
     assert [("just_2d" in ln) for ln in lines[:4]] == [False, False, False, True]
     summary = __import__("json").loads(lines[-1])
     assert summary["device"] == "cpu" and summary["finite"] and summary["steps"] == 4
-    # on CPU tensors the wrapper ran its plain version: no launch was counted
-    assert (fused_conv.conv_fwd_launches, fused_conv.conv_bwd_launches) == before
+    # on CPU tensors the wrappers ran their plain versions: no launch was counted
+    assert counts() == before
 
 
 def test_train_mode_refuses_dropout():
