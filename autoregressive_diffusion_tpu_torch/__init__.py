@@ -2,7 +2,8 @@
 autoregressive_diffusion_tpu for NVIDIA Hopper (H100).
 
 The subpackages mirror the JAX package (`ops/`, `models/`, `sampling/`,
-`train/`, `utils/`) so that every module's counterpart is easy to find. Public
+`train/`, `parallel/`, `utils/`) so that every module's counterpart is easy
+to find. Public
 functions keep the JAX package's channels-last layouts: videos are
 (B, T, H, W, C), conv weights HWIO / DHWIO, dense weights (in, out).
 
@@ -14,9 +15,12 @@ run hand-written CUDA kernels for sm_90a (`csrc/`, built at first use by
   * ops/fused_conv.py      -- the fused attention-free decode Block, and the
     train-mode fused gated causal conv, forward and backward, under a
     torch.autograd.Function.
-Entry points: `python -m autoregressive_diffusion_tpu_torch.generate` (the
-rollout) and `python -m autoregressive_diffusion_tpu_torch.train` (training
-steps on synthetic latents).
+ops/flash_attention.py also holds the training attention kernels (DART and
+full, and their sequence-parallel entry points, whose collectives are in
+parallel/). Entry points: `python -m autoregressive_diffusion_tpu_torch.generate`
+(the rollout) and `python -m autoregressive_diffusion_tpu_torch.train`
+(training steps on synthetic latents; under torchrun with --dp/--sp, data x
+sequence parallel).
 Each wrapper launches its kernel on CUDA tensors and runs its plain PyTorch
 version on CPU tensors. Entry points default to device="cuda" and raise
 when no card is present; the CPU is used only when asked for.

@@ -1,9 +1,15 @@
-// Flash-attention backward under a frame mask (DART or full), for sm_90a.
+// Flash-attention backward under a frame mask (DART, full or frame-causal),
+// for sm_90a.
 //
 // Replaces the backward of the JAX package's splash-attention kernels
 //   autoregressive_diffusion_tpu/ops/flash_attention.py::dart_attention
 //   (:177, splash dq and dkv kernels over DartMask :32-67) and
-//   ::full_attention (:224, FullMask).
+//   ::full_attention (:224, FullMask), and, through the entry point
+//   ad_flash_attention_sp_bwd, of the sequence-parallel ::dart_attention_sp
+//   (:326) and ::causal_frame_attention_sp (:336): from the Sq local query
+//   rows of one seq rank, dq for those rows and the rank's partial dk, dv
+//   over all Sk gathered key rows (the caller reduce-scatters them over the
+//   ranks, as autodiff of the JAX package's all_gather does).
 //
 // Given pre-scaled q, k, v, the forward's o and lse, and dO, with
 // P = exp(q k^T - lse) under the mask (csrc/flash_tile.cuh: frame_visible):
@@ -22,7 +28,8 @@
 //   flash_attn_delta_kernel: delta, one row per four lanes;
 //   flash_attn_dkv_kernel:  one block per (batch*head, 64-key tile) keeps
 //     its dk and dv in registers and walks only the query tiles that can see
-//     it (frame indices alone), recomputing P and dS per tile;
+//     it (frame indices alone), recomputing P and dS per tile; a key tile
+//     no local query sees gets zeros;
 //   flash_attn_dq_kernel:   one block per (batch*head, 64-row query tile)
 //     walks the key tiles it sees, as the forward does.
 // Nothing of size (S, S) reaches device memory. Tensor-core tiles are later
@@ -47,12 +54,13 @@ flash_attn_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
   if (row < rows && sub == 0) delta[row] = s;
 }
 
-template <typename T, int D>
+template <typename T, int D, bool SHARD>
 __global__ void __launch_bounds__(NT)
 flash_attn_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const T* __restrict__ dout,
                       const float* __restrict__ lse, const float* __restrict__ delta,
-                      T* __restrict__ dk, T* __restrict__ dv, int S, Mask mk) {
+                      T* __restrict__ dk, T* __restrict__ dv, int Sq, int Sk_sharded, Mask mk) {
+  const int Sk = SHARD ? Sk_sharded : Sq;
   constexpr int LD = D + 1;
   constexpr int LP = BQ + 1;
   constexpr int QPT = BQ / 4;  // queries scored per thread
@@ -67,34 +75,35 @@ flash_attn_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* sL = sS + BK * LP;  // lse of the query tile
   float* sD = sL + BQ;       // delta of the query tile
 
-  const int n_kt = (S + BK - 1) / BK;
+  const int n_kt = (Sk + BK - 1) / BK;
   const int bh = blockIdx.x / n_kt;
   const int k0 = (blockIdx.x % n_kt) * BK;
-  const size_t base = (size_t)bh * S * D;
+  const size_t qbase = (size_t)bh * Sq * D;
+  const size_t kbase = (size_t)bh * Sk * D;
   const int tid = threadIdx.x;
   const int r = tid >> 2;  // key row of the tile
   const int sub = tid & 3;
   const int gk = k0 + r;
-  const int k_last = min(k0 + BK, S) - 1;
+  const int k_last = min(k0 + BK, Sk) - 1;
 
-  load_tile<T, D>(sK, k + base, k0, S);
-  load_tile<T, D>(sV, v + base, k0, S);
+  load_tile<T, D>(sK, k + kbase, k0, Sk);
+  load_tile<T, D>(sV, v + kbase, k0, Sk);
 
   float adk[DPT], adv[DPT];
 #pragma unroll
   for (int d = 0; d < DPT; ++d) adk[d] = adv[d] = 0.f;
 
-  const int n_qt = (S + BQ - 1) / BQ;
+  const int n_qt = (Sq + BQ - 1) / BQ;
   for (int t = 0; t < n_qt; ++t) {
     const int q0 = t * BQ;
-    if (!tile_visible(mk, q0, min(q0 + BQ, S) - 1, k0, k_last)) continue;
+    if (!tile_visible<SHARD>(mk, q0, min(q0 + BQ, Sq) - 1, k0, k_last)) continue;
     __syncthreads();  // the previous tile's reads are done
-    load_tile<T, D>(sQ, q + base, q0, S);
-    load_tile<T, D>(sO, dout + base, q0, S);
+    load_tile<T, D>(sQ, q + qbase, q0, Sq);
+    load_tile<T, D>(sO, dout + qbase, q0, Sq);
     if (tid < BQ) {
       const int g = q0 + tid;
-      sL[tid] = g < S ? lse[(size_t)bh * S + g] : 0.f;
-      sD[tid] = g < S ? delta[(size_t)bh * S + g] : 0.f;
+      sL[tid] = g < Sq ? lse[(size_t)bh * Sq + g] : 0.f;
+      sD[tid] = g < Sq ? delta[(size_t)bh * Sq + g] : 0.f;
     }
     __syncthreads();
 
@@ -114,7 +123,7 @@ flash_attn_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int ii = 0; ii < QPT; ++ii) {
       const int i = sub + 4 * ii;
       const int g = q0 + i;
-      const bool ok = g < S && gk < S && token_visible(mk, g, gk);
+      const bool ok = g < Sq && gk < Sk && token_visible<SHARD>(mk, g, gk);
       const float p = ok ? expf(s[ii] - sL[i]) : 0.f;
       sP[r * LP + i] = p;
       sS[r * LP + i] = p * (dp[ii] - sD[i]);
@@ -130,22 +139,23 @@ flash_attn_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
   }
-  if (gk < S) {
+  if (gk < Sk) {
 #pragma unroll
     for (int d = 0; d < DPT; ++d) {
-      const size_t at = base + (size_t)gk * D + sub + 4 * d;
+      const size_t at = kbase + (size_t)gk * D + sub + 4 * d;
       dk[at] = from_f<T>(adk[d]);
       dv[at] = from_f<T>(adv[d]);
     }
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool SHARD>
 __global__ void __launch_bounds__(NT)
 flash_attn_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
                      const float* __restrict__ lse, const float* __restrict__ delta,
-                     T* __restrict__ dq, int S, Mask mk) {
+                     T* __restrict__ dq, int Sq, int Sk_sharded, Mask mk) {
+  const int Sk = SHARD ? Sk_sharded : Sq;
   constexpr int LD = D + 1;
   constexpr int LP = BK + 1;
   constexpr int KPT = BK / 4;
@@ -157,32 +167,33 @@ flash_attn_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* sV = sK + BK * LD;
   float* sS = sV + BK * LD;  // dS, query-major
 
-  const int n_qt = (S + BQ - 1) / BQ;
+  const int n_qt = (Sq + BQ - 1) / BQ;
   const int bh = blockIdx.x / n_qt;
   const int q0 = (blockIdx.x % n_qt) * BQ;
-  const size_t base = (size_t)bh * S * D;
+  const size_t qbase = (size_t)bh * Sq * D;
+  const size_t kbase = (size_t)bh * Sk * D;
   const int tid = threadIdx.x;
   const int r = tid >> 2;  // query row of the tile
   const int sub = tid & 3;
   const int gq = q0 + r;
-  const int q_last = min(q0 + BQ, S) - 1;
+  const int q_last = min(q0 + BQ, Sq) - 1;
 
-  load_tile<T, D>(sQ, q + base, q0, S);
-  load_tile<T, D>(sO, dout + base, q0, S);
-  const float my_lse = gq < S ? lse[(size_t)bh * S + gq] : 0.f;
-  const float my_delta = gq < S ? delta[(size_t)bh * S + gq] : 0.f;
+  load_tile<T, D>(sQ, q + qbase, q0, Sq);
+  load_tile<T, D>(sO, dout + qbase, q0, Sq);
+  const float my_lse = gq < Sq ? lse[(size_t)bh * Sq + gq] : 0.f;
+  const float my_delta = gq < Sq ? delta[(size_t)bh * Sq + gq] : 0.f;
 
   float acc[DPT];
 #pragma unroll
   for (int d = 0; d < DPT; ++d) acc[d] = 0.f;
 
-  const int n_kt = (S + BK - 1) / BK;
+  const int n_kt = (Sk + BK - 1) / BK;
   for (int t = 0; t < n_kt; ++t) {
     const int k0 = t * BK;
-    if (!tile_visible(mk, q0, q_last, k0, min(k0 + BK, S) - 1)) continue;
+    if (!tile_visible<SHARD>(mk, q0, q_last, k0, min(k0 + BK, Sk) - 1)) continue;
     __syncthreads();
-    load_tile<T, D>(sK, k + base, k0, S);
-    load_tile<T, D>(sV, v + base, k0, S);
+    load_tile<T, D>(sK, k + kbase, k0, Sk);
+    load_tile<T, D>(sV, v + kbase, k0, Sk);
     __syncthreads();
 
     float s[KPT], dp[KPT];
@@ -201,7 +212,7 @@ flash_attn_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int jj = 0; jj < KPT; ++jj) {
       const int j = sub + 4 * jj;
       const int g = k0 + j;
-      const bool ok = g < S && gq < S && token_visible(mk, gq, g);
+      const bool ok = g < Sk && gq < Sq && token_visible<SHARD>(mk, gq, g);
       sS[r * LP + j] = ok ? expf(s[jj] - my_lse) * (dp[jj] - my_delta) : 0.f;
     }
     __syncwarp();  // the row's dS comes from the same four lanes
@@ -211,17 +222,17 @@ flash_attn_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int d = 0; d < DPT; ++d) acc[d] += ds * sK[j * LD + sub + 4 * d];
     }
   }
-  if (gq < S) {
+  if (gq < Sq) {
 #pragma unroll
     for (int d = 0; d < DPT; ++d)
-      dq[base + (size_t)gq * D + sub + 4 * d] = from_f<T>(acc[d]);
+      dq[qbase + (size_t)gq * D + sub + 4 * d] = from_f<T>(acc[d]);
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool SHARD>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
                    const float* lse, const void* dout, float* delta, void* dq, void* dk,
-                   void* dv, int BH, int S, Mask mk, cudaStream_t stream) {
+                   void* dv, int BH, int Sq, int Sk, Mask mk, cudaStream_t stream) {
   const T* Q = static_cast<const T*>(q);
   const T* K = static_cast<const T*>(k);
   const T* V = static_cast<const T*>(v);
@@ -230,38 +241,70 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
   const size_t smem_dkv = sizeof(float) * (4 * tile + 2 * (size_t)BK * (BQ + 1) + 2 * BQ);
   const size_t smem_dq = sizeof(float) * (4 * tile + (size_t)BQ * (BK + 1));
   static bool dkv_ok = false, dq_ok = false;
-  cudaError_t e = allow_smem(flash_attn_dkv_kernel<T, D>, smem_dkv, dkv_ok);
+  cudaError_t e = allow_smem(flash_attn_dkv_kernel<T, D, SHARD>, smem_dkv, dkv_ok);
   if (e != cudaSuccess) return e;
-  e = allow_smem(flash_attn_dq_kernel<T, D>, smem_dq, dq_ok);
+  e = allow_smem(flash_attn_dq_kernel<T, D, SHARD>, smem_dq, dq_ok);
   if (e != cudaSuccess) return e;
 
-  const long long rows = (long long)BH * S;
-  const long long tiles = (long long)BH * ((S + 63) / 64);
-  if (tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const long long rows = (long long)BH * Sq;
+  const long long q_tiles = (long long)BH * ((Sq + BQ - 1) / BQ);
+  const long long k_tiles = (long long)BH * ((Sk + BK - 1) / BK);
+  if (q_tiles > 0x7fffffffLL || k_tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
   flash_attn_delta_kernel<T, D><<<(unsigned)((rows + NT / 4 - 1) / (NT / 4)), NT, 0, stream>>>(
       static_cast<const T*>(o), dO, delta, rows);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  flash_attn_dkv_kernel<T, D><<<(unsigned)tiles, NT, smem_dkv, stream>>>(
-      Q, K, V, dO, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), S, mk);
+  flash_attn_dkv_kernel<T, D, SHARD><<<(unsigned)k_tiles, NT, smem_dkv, stream>>>(
+      Q, K, V, dO, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), Sq, Sk, mk);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  flash_attn_dq_kernel<T, D><<<(unsigned)tiles, NT, smem_dq, stream>>>(
-      Q, K, V, dO, lse, delta, static_cast<T*>(dq), S, mk);
+  flash_attn_dq_kernel<T, D, SHARD><<<(unsigned)q_tiles, NT, smem_dq, stream>>>(
+      Q, K, V, dO, lse, delta, static_cast<T*>(dq), Sq, Sk, mk);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool SHARD>
 cudaError_t dispatch_d(const void* q, const void* k, const void* v, const void* o,
                        const float* lse, const void* dout, float* delta, void* dq, void* dk,
-                       void* dv, int BH, int S, int D, Mask mk, cudaStream_t s) {
+                       void* dv, int BH, int Sq, int Sk, int D, Mask mk, cudaStream_t s) {
+#define AD_LAUNCH(DD) \
+  launch<T, DD, SHARD>(q, k, v, o, lse, dout, delta, dq, dk, dv, BH, Sq, Sk, mk, s)
   switch (D) {
-    case 16: return launch<T, 16>(q, k, v, o, lse, dout, delta, dq, dk, dv, BH, S, mk, s);
-    case 32: return launch<T, 32>(q, k, v, o, lse, dout, delta, dq, dk, dv, BH, S, mk, s);
-    case 64: return launch<T, 64>(q, k, v, o, lse, dout, delta, dq, dk, dv, BH, S, mk, s);
-    case 128: return launch<T, 128>(q, k, v, o, lse, dout, delta, dq, dk, dv, BH, S, mk, s);
+    case 16: return AD_LAUNCH(16);
+    case 32: return AD_LAUNCH(32);
+    case 64: return AD_LAUNCH(64);
+    case 128: return AD_LAUNCH(128);
     default: return cudaErrorInvalidValue;
   }
+#undef AD_LAUNCH
+}
+
+template <bool SHARD>
+cudaError_t dispatch_t(const void* q, const void* k, const void* v, const void* o,
+                       const float* lse, const void* dout, float* delta, void* dq, void* dk,
+                       void* dv, int BH, int Sq, int Sk, int D, Mask mk, int dtype,
+                       cudaStream_t s) {
+  if (dtype == 0)
+    return dispatch_d<float, SHARD>(q, k, v, o, lse, dout, delta, dq, dk, dv, BH, Sq, Sk, D, mk,
+                                    s);
+  if (dtype == 1)
+    return dispatch_d<__nv_bfloat16, SHARD>(q, k, v, o, lse, dout, delta, dq, dk, dv, BH, Sq,
+                                            Sk, D, mk, s);
+  return cudaErrorInvalidValue;
+}
+
+cudaError_t dispatch(const void* q, const void* k, const void* v, const void* o,
+                     const void* lse, const void* dout, void* delta, void* dq, void* dk,
+                     void* dv, int BH, int Sq, int Sk, int D, int kind, int n_frames, int hw,
+                     int sp_rank, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  Mask mk;
+  if (BH <= 0 || !make_mask(kind, Sq, Sk, n_frames, hw, sp_rank, &mk)) return cudaErrorInvalidValue;
+  const float* l = static_cast<const float*>(lse);
+  float* dl = static_cast<float*>(delta);
+  if (sp_rank < 0)
+    return dispatch_t<false>(q, k, v, o, l, dout, dl, dq, dk, dv, BH, Sq, Sk, D, mk, dtype, s);
+  return dispatch_t<true>(q, k, v, o, l, dout, dl, dq, dk, dv, BH, Sq, Sk, D, mk, dtype, s);
 }
 
 }  // namespace
@@ -270,24 +313,26 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, const void* 
 extern "C" {
 
 // delta: (BH, S) fp32 scratch. kind: 0 = DART (S = 2 * n_frames * hw),
-// 1 = full. dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t code.
+// 1 = full, 2 = frame-causal (S = n_frames * hw). dtype: 0 = float32,
+// 1 = bfloat16. Returns a cudaError_t code.
 int ad_flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                            const void* lse, const void* dout, void* delta, void* dq,
                            void* dk, void* dv, int BH, int S, int D, int kind, int n_frames,
                            int hw, int dtype, void* stream) {
-  using namespace adflash;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (BH <= 0 || S <= 0 || hw <= 0 || (kind != 0 && kind != 1)) return (int)cudaErrorInvalidValue;
-  if (kind == 0 && S != 2 * n_frames * hw) return (int)cudaErrorInvalidValue;
-  const Mask mk{kind, n_frames, hw};
-  const float* l = static_cast<const float*>(lse);
-  float* dl = static_cast<float*>(delta);
-  if (dtype == 0)
-    return (int)dispatch_d<float>(q, k, v, o, l, dout, dl, dq, dk, dv, BH, S, D, mk, s);
-  if (dtype == 1)
-    return (int)dispatch_d<__nv_bfloat16>(q, k, v, o, l, dout, dl, dq, dk, dv, BH, S, D, mk,
-                                          s);
-  return (int)cudaErrorInvalidValue;
+  return (int)adflash::dispatch(q, k, v, o, lse, dout, delta, dq, dk, dv, BH, S, S, D, kind,
+                                n_frames, hw, -1, dtype, stream);
+}
+
+// Sequence parallel (layouts as ad_flash_attention_sp_fwd): q, o, lse, dO,
+// delta and dq hold the Sq rows of seq rank sp_rank; k, v, dk and dv the
+// Sk = sp * Sq gathered rows, dk and dv being this rank's partial sums.
+int ad_flash_attention_sp_bwd(const void* q, const void* k, const void* v, const void* o,
+                              const void* lse, const void* dout, void* delta, void* dq,
+                              void* dk, void* dv, int BH, int Sq, int Sk, int D, int kind,
+                              int n_frames, int hw, int sp_rank, int dtype, void* stream) {
+  if (sp_rank < 0) return (int)cudaErrorInvalidValue;
+  return (int)adflash::dispatch(q, k, v, o, lse, dout, delta, dq, dk, dv, BH, Sq, Sk, D, kind,
+                                n_frames, hw, sp_rank, dtype, stream);
 }
 
 const char* ad_cuda_error_string(int err) {

@@ -12,7 +12,10 @@ Counterpart of autoregressive_diffusion_tpu/models/attention.py:
     tables (decode_tables), as in the JAX package;
   * train mode is DART flash attention (ops/flash_attention.dart_attention)
     over the S = 2*T*hw tokens of the concat, the clean and noisy replicas
-    sharing RoPE positions;
+    sharing RoPE positions; under a sequence-parallel context
+    (ops/flash_attention.set_sp_context) each seq rank's local concat
+    attends the K/V of all ranks (dart_attention_sp), at the global RoPE
+    positions of its frames;
   * just_2d and FrameAttention are unmasked flash attention within each
     frame (ops/flash_attention.full_attention), frames folded into the
     batch.
@@ -29,8 +32,9 @@ import einops
 import torch
 from torch import nn
 
-from ..ops.flash_attention import (causal_frame_attention, dart_attention, full_attention,
-                                   prefill_cache_attention)
+from ..ops.flash_attention import (causal_frame_attention, dart_attention, dart_attention_sp,
+                                   full_attention, prefill_cache_attention, sp_context,
+                                   sp_flash_supported)
 from ..ops.masks import ring_slot_position
 from ..ops.numerics import mp_sum, normalize
 from ..ops.rope import apply_rope, rope_qk, rope_tables
@@ -105,7 +109,7 @@ class VideoAttention(nn.Module):
         if just_2d:
             o = _per_frame_attention(q, k, v)
         elif mode == "train":
-            o = self._train_attention(q, k, v, b, t, hw)
+            o = self._train_attention(q, k, v, b, t, hw, frames)
         else:
             o = self._eval_attention(q, k, v, cache, frames, b, t, hw)
             if update_cache:
@@ -123,15 +127,23 @@ class VideoAttention(nn.Module):
         y = self.attn_proj(y)
         return mp_sum(x, y, t=self.attn_balance), cache
 
-    def _train_attention(self, q, k, v, b, t, hw):
+    def _train_attention(self, q, k, v, b, t, hw, frames):
+        """DART attention over the concat of t = 2 t_half frames, at clip
+        positions frames + [0, t_half): frames = 0, or this seq rank's
+        offset when the clip's T = sp * t_half frames are split over ranks."""
         m, t_half = self.num_heads, t // 2
-        pos = torch.arange(t_half, device=q.device)
+        sp = sp_flash_supported(t_half)
+        n_frames = t_half * (sp_context().sp if sp else 1)
+        pos = frames + torch.arange(t_half, device=q.device)
         # the clean and noisy replicas share positions
         qs, ks = rope_qk(q.reshape(b, m, 2, t_half, hw, -1),
                          k.reshape(b, m, 2, t_half, hw, -1), pos, pos,
-                         center=t_half // 2)
-        o = dart_attention(qs.reshape(b, m, t * hw, -1), ks.reshape(b, m, t * hw, -1),
-                           v.reshape(b, m, t * hw, -1), t_half, hw)
+                         center=n_frames // 2)
+        qs, ks, vs = (a.reshape(b, m, t * hw, -1) for a in (qs, ks, v))
+        if sp:
+            o = dart_attention_sp(qs, ks, vs, n_frames, hw, sp_context().seq_group)
+        else:
+            o = dart_attention(qs, ks, vs, n_frames, hw)
         return o.reshape(b, m, t, hw, -1)
 
     def _eval_attention(self, q, k, v, cache, frames, b, t, hw):

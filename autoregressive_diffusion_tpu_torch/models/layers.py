@@ -6,8 +6,11 @@ same cache protocol -- y, new_cache = layer(x, ..., cache=..., update_cache=...)
 Parameters hold the RAW weights under the JAX package's names and layouts;
 every forward normalizes them (mp_weight), as the JAX forward does. In train
 mode every MPCausalConv3d call goes through ops/fused_conv.fused_gated_conv
-(the CUDA kernels on the card, their plain version on the CPU). The int8
-decode weights belong to a later port slice.
+(the CUDA kernels on the card, their plain version on the CPU); under a
+sequence-parallel context (ops/flash_attention.set_sp_context) it runs on
+this seq rank's frames extended by a 2-frame halo from the rank before
+(parallel/collectives.exchange_halo). The int8 decode weights belong to a
+later port slice.
 """
 from __future__ import annotations
 
@@ -17,8 +20,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.flash_attention import sp_context
 from ..ops.fused_conv import fused_gated_conv
 from ..ops.numerics import mp_weight
+from ..parallel.collectives import HALO, exchange_halo
 
 
 def mp_sum_gated(a: torch.Tensor, b: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
@@ -63,7 +68,9 @@ class MPConv(nn.Module):
 class Gating(nn.Module):
     """Noise/position-conditioned gate between the 2D and context conv
     branches, positions log1p(arange % t + frames); in train mode c_noise
-    is over the DART concat and both halves share the positions of t = T.
+    is over the DART concat and both halves share the positions of t = T
+    (frames = the first frame's position in the clip: 0, or a seq rank's
+    frame offset under sequence parallelism).
     gate = mn + (1-mn)*mx*sigmoid(mult . (c_noise, position) + offsets)."""
 
     def __init__(self):
@@ -157,5 +164,27 @@ class MPCausalConv3d(nn.Module):
         if just_2d:
             return fused_gated_conv(x.contiguous(), w2, None, cvec, None, silu_in, False)
         w3 = mp_weight(self.w).to(dt)
+        mesh = sp_context()
+        if mesh is not None and mesh.sp > 1:
+            return self._train_sp(x, c_noise, frames, silu_in, cvec, w2, w3, mesh)
         gate = self.gating(c_noise, frames, train=True).float()
         return fused_gated_conv(x.contiguous(), w2, w3, cvec, gate, silu_in, True)
+
+    def _train_sp(self, x, c_noise, frames, silu_in, cvec, w2, w3, mesh):
+        """The DART conv of this seq rank's frames (global positions from
+        `frames`, the rank's offset): on rank r > 0 the conv runs on the
+        concat extended by rank r - 1's last 2 clean frames, which their
+        context reads, and drops the 2 extra outputs of each half; the halo
+        gets its own cvec rows and gates at positions frames - 2, frames - 1.
+        Costs (t_l + 2) / t_l of the conv work on those ranks."""
+        t_l = x.shape[1] // 2
+        x, cvec = exchange_halo(x, cvec, mesh.seq_group)
+        if mesh.seq_rank == 0:
+            gate = self.gating(c_noise, frames, train=True).float()
+            return fused_gated_conv(x.contiguous(), w2, w3, cvec, gate, silu_in, True)
+        # the halo's noise level: the clean frames of a sample share one sigma
+        pad = [c_noise[:, :1].expand(-1, HALO), c_noise[:, :t_l],
+               c_noise[:, t_l:t_l + 1].expand(-1, HALO), c_noise[:, t_l:]]
+        gate = self.gating(torch.cat(pad, dim=1), frames - HALO, train=True).float()
+        y = fused_gated_conv(x.contiguous(), w2, w3, cvec, gate, silu_in, True)
+        return torch.cat([y[:, HALO:HALO + t_l], y[:, 2 * HALO + t_l:]], dim=1)

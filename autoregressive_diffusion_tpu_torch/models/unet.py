@@ -9,7 +9,10 @@ T=1 cached decode step of every attention-free Block, and the T=1 just_2d
 step, run the fused decode Block (ops/fused_conv.py). In train mode (x is
 the DART concat of clean and noisy frames, or plain frames with just_2d)
 every causal conv runs the fused gated conv with its input transform
-folded in, and attention is dense under the DART mask. The TPU
+folded in, and video attention is DART flash attention. Under a
+sequence-parallel context (ops/flash_attention.set_sp_context) x holds one
+seq rank's frames, and the rank's frame offset in the clip reaches every
+Block as `frames`, so gates and RoPE see global positions. The TPU
 packed-chain planner and its lane layout are not carried over; dropout is
 not ported (every configuration has 0) and a non-zero value raises.
 """
@@ -23,6 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.flash_attention import sp_context
 from ..ops.fused_conv import fused_decode_block
 from ..ops.numerics import mp_cat, mp_fourier, mp_silu, mp_sum, normalize, resample
 from .attention import FrameAttention, VideoAttention
@@ -273,6 +277,9 @@ class UNet(nn.Module):
         cache = cache or {}
         t = x.shape[1]
         frames = int(cache.get("frames", 0))
+        mesh = sp_context()
+        if mode == "train" and not just_2d and mesh is not None:
+            frames = mesh.seq_rank * (t // 2)  # this rank's first frame in the clip
 
         emb = self.emb_noise(self.emb_fourier_sigma(c_noise))
         if cfg.label_dim and conditioning is not None:

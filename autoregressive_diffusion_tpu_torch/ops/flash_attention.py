@@ -18,6 +18,20 @@ the torch.autograd.Function _FlashAttention) replaces
 The forward returns o and the per-row log-sum-exp; the backward recomputes
 the softmax from them (FlashAttention-2), so no (S, S) tensor is kept.
 
+Sequence parallel (the same two kernels through their entry points
+ad_flash_attention_sp_fwd / _sp_bwd, under the same Function) replaces
+  * ops/flash_attention.py::dart_attention_sp (:326) and
+    ::causal_frame_attention_sp (:336) -- splash with q_seq_shards = sp
+    (:286-323): each rank of a `seq` process group keeps its query rows,
+    all-gathers K and V (parallel/collectives.py::gather_kv, whose backward
+    reduce-scatters dK and dV) and attends its rows to the whole clip.
+Under "dart" a rank's rows are its local DART concat (its clean frames,
+then the same frames noisy) and the gathered K/V come rank-major; the
+kernels map every frame index to its global frame (ops/masks.shard_frame)
+before the mask rule, so nothing is permuted. The context that routes
+train-mode attention here is set_sp_context / sp_context /
+sp_flash_supported, as in the JAX package.
+
 All take q pre-scaled by 1/sqrt(d) and cast to the input type (the public
 functions scale it, outside the Function, so autograd carries the scale
 into dq), compute logits and the softmax in fp32 and write their results
@@ -36,29 +50,42 @@ import math
 import numpy as np
 import torch
 
+import torch.distributed as dist
+
+from ..parallel.collectives import gather_kv
 from . import _build
-from .masks import expand_to_tokens, frame_visible, prefill_frame_mask
+from .masks import expand_to_tokens, frame_visible, prefill_frame_mask, shard_frame
 
 # Kernel launches since the last reset (chip_smoke.py zeroes and reads
-# them): the prefill kernel, and the training kernels by mask kind (one
-# backward count is one call of the backward entry point, whose three
-# stages run back to back on one stream).
+# them): the prefill kernel, and the training kernels by mask kind, without
+# and with sequence parallelism (one backward count is one call of the
+# backward entry point, whose three stages run back to back on one stream).
 launches = 0
 dart_fwd_launches = 0
 dart_bwd_launches = 0
 full_fwd_launches = 0
 full_bwd_launches = 0
+dart_sp_fwd_launches = 0
+dart_sp_bwd_launches = 0
+causal_sp_fwd_launches = 0
+causal_sp_bwd_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64, 128)
 _SIGNATURES = {"ad_prefill_attention": (
     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
     ctypes.c_int)}
-_FWD_SIGNATURES = {"ad_flash_attention_fwd": (
-    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p], ctypes.c_int)}
-_BWD_SIGNATURES = {"ad_flash_attention_bwd": (
-    [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p], ctypes.c_int)}
-_KINDS = {"dart": 0, "full": 1}
+_FWD_SIGNATURES = {
+    "ad_flash_attention_fwd": (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p], ctypes.c_int),
+    "ad_flash_attention_sp_fwd": (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p], ctypes.c_int)}
+_BWD_SIGNATURES = {
+    "ad_flash_attention_bwd": (
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p], ctypes.c_int),
+    "ad_flash_attention_sp_bwd": (
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [ctypes.c_void_p], ctypes.c_int)}
+_KINDS = {"dart": 0, "full": 1, "causal": 2}
 
 
 def prefill_attention_plain(qs, k, v, t_new: int, f_total: int, offset: int,
@@ -136,25 +163,41 @@ def prefill_cache_attention(q, k, v, t_new: int, f_total: int, offset: int,
 
 
 # ---------------------------------------------------------------------------
-# Training: DART and full flash attention, forward and backward
+# Training: DART and full flash attention, forward and backward; the same
+# kernels sequence parallel (sp_rank = the query rows' seq rank, else None)
 
 @functools.lru_cache(maxsize=32)
-def _token_mask_np(kind: str, n_frames: int, hw: int, s: int) -> np.ndarray:
-    f = np.arange(s) // hw
-    return frame_visible(kind, f[:, None], f[None, :], n_frames)
+def _token_mask_np(kind: str, n_frames: int, hw: int, s: int, sp: int = 1,
+                   sp_rank: int = 0) -> np.ndarray:
+    """(S, sp*S) bool mask of the predicate the kernels evaluate: the S query
+    rows of seq rank `sp_rank` against the keys gathered from all `sp`
+    ranks, each frame index mapped to its global frame (masks.shard_frame);
+    sp = 1 is the (S, S) mask of one rank."""
+    t_local = n_frames // sp
+    qf = shard_frame(np.arange(sp_rank * s, (sp_rank + 1) * s) // hw, t_local, n_frames, kind)
+    kf = shard_frame(np.arange(sp * s) // hw, t_local, n_frames, kind)
+    return frame_visible(kind, qf[:, None], kf[None, :], n_frames)
 
 
-def _token_mask(kind: str, n_frames: int, hw: int, s: int, device) -> torch.Tensor:
-    """(S, S) bool mask of the predicate the kernels evaluate (a copy of
-    the cached array, which no caller can then change)."""
-    return torch.tensor(_token_mask_np(kind, n_frames, hw, s), device=device)
+def _token_mask(kind: str, n_frames: int, hw: int, s: int, device, sp: int = 1,
+                sp_rank: int = 0) -> torch.Tensor:
+    """The mask of _token_mask_np on `device` (a copy of the cached array,
+    which no caller can then change)."""
+    return torch.tensor(_token_mask_np(kind, n_frames, hw, s, sp, sp_rank), device=device)
 
 
-def flash_attention_fwd_plain(qs, k, v, kind: str, n_frames: int, hw: int):
-    """Plain version of the forward kernel. qs (pre-scaled), k, v:
-    (..., S, d). Returns (o in v's type, lse fp32 (..., S))."""
+def _mask_of(qs, k, kind, n_frames, hw, sp_rank):
+    sp = 1 if sp_rank is None else k.shape[-2] // qs.shape[-2]
+    return _token_mask(kind, n_frames, hw, qs.shape[-2], qs.device, sp, sp_rank or 0)
+
+
+def flash_attention_fwd_plain(qs, k, v, kind: str, n_frames: int, hw: int, sp_rank=None):
+    """Plain version of the forward kernel. qs (pre-scaled): (..., Sq, d);
+    k, v: (..., Sk, d), Sk = Sq but under sequence parallelism (sp_rank =
+    the rank of qs's rows, k and v gathered from all ranks: Sk = sp * Sq).
+    Returns (o in v's type, lse fp32 (..., Sq))."""
     logits = torch.einsum("...qc,...kc->...qk", qs.float(), k.float())
-    mask = _token_mask(kind, n_frames, hw, qs.shape[-2], qs.device)
+    mask = _mask_of(qs, k, kind, n_frames, hw, sp_rank)
     logits = logits.masked_fill(~mask, float("-inf"))
     lse = torch.logsumexp(logits, dim=-1)
     p = torch.exp(logits - lse[..., None])
@@ -162,14 +205,16 @@ def flash_attention_fwd_plain(qs, k, v, kind: str, n_frames: int, hw: int):
     return o.to(v.dtype), lse
 
 
-def flash_attention_bwd_plain(qs, k, v, o, lse, do, kind: str, n_frames: int, hw: int):
+def flash_attention_bwd_plain(qs, k, v, o, lse, do, kind: str, n_frames: int, hw: int,
+                              sp_rank=None):
     """Plain version of the backward kernels, by the explicit formula:
     P = exp(qs k^T - lse) under the mask, delta = rowsum(dO * o),
-    dS = P * (dO v^T - delta); dq = dS k, dk = dS^T qs, dv = P^T dO.
-    Returns (dq, dk, dv) in the input types."""
+    dS = P * (dP - delta); dq = dS k, dk = dS^T qs, dv = P^T dO.
+    Returns (dq, dk, dv) in the input types; under sequence parallelism dk
+    and dv are the sums over this rank's query rows only."""
     qf, kf, vf, dof = qs.float(), k.float(), v.float(), do.float()
     logits = torch.einsum("...qc,...kc->...qk", qf, kf)
-    mask = _token_mask(kind, n_frames, hw, qs.shape[-2], qs.device)
+    mask = _mask_of(qs, k, kind, n_frames, hw, sp_rank)
     p = torch.where(mask, torch.exp(logits - lse[..., None]), 0.0)
     delta = (dof * o.float()).sum(-1)
     dp = torch.einsum("...qc,...kc->...qk", dof, vf)
@@ -180,69 +225,101 @@ def flash_attention_bwd_plain(qs, k, v, o, lse, do, kind: str, n_frames: int, hw
     return dq.to(qs.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _flash_args(kind, n_frames, hw, *tensors):
-    """Check the training kernels' arguments; returns (b, h, S, d)."""
-    qs = tensors[0]
-    if kind not in _KINDS:
-        raise ValueError(f"flash attention: unknown mask kind {kind!r}")
-    if qs.ndim != 4:
-        raise ValueError(f"flash attention: q must be (b, heads, S, d), got {tuple(qs.shape)}")
+def flash_attention_sp_fwd_plain(qs, k, v, kind: str, n_frames: int, hw: int, sp_rank: int):
+    """Plain version of the sequence-parallel forward: the Sq rows of seq
+    rank sp_rank against the Sk = sp * Sq gathered rows of k and v."""
+    return flash_attention_fwd_plain(qs, k, v, kind, n_frames, hw, sp_rank)
+
+
+def flash_attention_sp_bwd_plain(qs, k, v, o, lse, do, kind: str, n_frames: int, hw: int,
+                                 sp_rank: int):
+    """Plain version of the sequence-parallel backward: dq of the local rows,
+    this rank's partial dk and dv over all gathered rows."""
+    return flash_attention_bwd_plain(qs, k, v, o, lse, do, kind, n_frames, hw, sp_rank)
+
+
+def _flash_args(kind, n_frames, hw, sp_rank, rows, keys):
+    """Check the training kernels' arguments: `rows` are shaped as q (q, and
+    o and dO in the backward), `keys` as k (k, v). Returns (b, h, Sq, Sk, d)."""
+    qs, k = rows[0], keys[0]
+    kinds = ("dart", "full") if sp_rank is None else ("dart", "causal")
+    if kind not in kinds:
+        raise ValueError(f"flash attention: mask kind {kind!r} not in {kinds}")
+    if qs.ndim != 4 or k.ndim != 4:
+        raise ValueError(f"flash attention: q and k must be (b, heads, S, d), got "
+                         f"{tuple(qs.shape)}, {tuple(k.shape)}")
     if qs.dtype not in _DTYPES:
         raise ValueError(f"flash attention: dtype {qs.dtype} not float32/bfloat16")
-    b, h, s, d = qs.shape
+    b, h, sq, d = qs.shape
+    sk = k.shape[2]
     if d not in _HEAD_DIMS:
         raise ValueError(f"flash attention: head dim {d} not in {_HEAD_DIMS}")
-    if kind == "dart" and s != 2 * n_frames * hw:
-        raise ValueError(f"flash attention: S={s} is not 2 * {n_frames} frames * {hw}")
-    for t in tensors:
-        if not t.is_cuda or t.device != qs.device:
-            raise ValueError("flash attention: every tensor must be on q's CUDA device")
-        if t.dtype != qs.dtype or t.shape != qs.shape:
-            raise ValueError(f"flash attention: {tuple(t.shape)} {t.dtype}, expected "
-                             f"{tuple(qs.shape)} {qs.dtype}")
-        if not t.is_contiguous():
-            raise ValueError("flash attention: tensors must be contiguous")
-    return b, h, s, d
-
-
-def _launch_fwd(qs, k, v, kind, n_frames, hw):
-    global dart_fwd_launches, full_fwd_launches
-    b, h, s, d = _flash_args(kind, n_frames, hw, qs, k, v)
-    o = torch.empty_like(qs)
-    lse = torch.empty((b, h, s), dtype=torch.float32, device=qs.device)
-    lib = _build.load("flash_attention_fwd", _FWD_SIGNATURES)
-    err = lib.ad_flash_attention_fwd(
-        qs.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        b * h, s, d, _KINDS[kind], n_frames, hw, _DTYPES[qs.dtype],
-        torch.cuda.current_stream(qs.device).cuda_stream)
-    _build.check(lib, err, "flash attention forward")
-    if kind == "dart":
-        dart_fwd_launches += 1
+    if sp_rank is None:
+        if sk != sq or (kind == "dart" and sq != 2 * n_frames * hw):
+            raise ValueError(f"flash attention: Sq={sq}, Sk={sk}; a DART S is "
+                             f"2 * {n_frames} frames * {hw}")
     else:
-        full_fwd_launches += 1
+        sp, fq = sk // sq, sq // hw
+        t_local = fq // 2 if kind == "dart" else fq
+        if (sk % sq or sq % hw or not 0 <= sp_rank < sp or (kind == "dart" and fq % 2)
+                or n_frames != sp * t_local):
+            raise ValueError(f"flash attention: Sq={sq}, Sk={sk}, hw={hw}, rank {sp_rank}: "
+                             f"not a {kind} shard of {n_frames} frames")
+    for group, shape in ((rows, (b, h, sq, d)), (keys, (b, h, sk, d))):
+        for t in group:
+            if not t.is_cuda or t.device != qs.device:
+                raise ValueError("flash attention: every tensor must be on q's CUDA device")
+            if t.dtype != qs.dtype or tuple(t.shape) != shape:
+                raise ValueError(f"flash attention: {tuple(t.shape)} {t.dtype}, expected "
+                                 f"{shape} {qs.dtype}")
+            if not t.is_contiguous():
+                raise ValueError("flash attention: tensors must be contiguous")
+    return b, h, sq, sk, d
+
+
+def _count(kind, sp_rank, which):
+    name = f"{kind}_{'' if sp_rank is None else 'sp_'}{which}_launches"
+    globals()[name] += 1
+
+
+def _launch_fwd(qs, k, v, kind, n_frames, hw, sp_rank=None):
+    b, h, sq, sk, d = _flash_args(kind, n_frames, hw, sp_rank, (qs,), (k, v))
+    o = torch.empty_like(qs)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=qs.device)
+    lib = _build.load("flash_attention_fwd", _FWD_SIGNATURES)
+    ptrs = (qs.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr())
+    stream = torch.cuda.current_stream(qs.device).cuda_stream
+    if sp_rank is None:
+        err = lib.ad_flash_attention_fwd(*ptrs, b * h, sq, d, _KINDS[kind], n_frames, hw,
+                                         _DTYPES[qs.dtype], stream)
+    else:
+        err = lib.ad_flash_attention_sp_fwd(*ptrs, b * h, sq, sk, d, _KINDS[kind], n_frames,
+                                            hw, sp_rank, _DTYPES[qs.dtype], stream)
+    _build.check(lib, err, "flash attention forward")
+    _count(kind, sp_rank, "fwd")
     return o, lse
 
 
-def _launch_bwd(qs, k, v, o, lse, do, kind, n_frames, hw):
-    global dart_bwd_launches, full_bwd_launches
-    b, h, s, d = _flash_args(kind, n_frames, hw, qs, k, v, o, do)
+def _launch_bwd(qs, k, v, o, lse, do, kind, n_frames, hw, sp_rank=None):
+    b, h, sq, sk, d = _flash_args(kind, n_frames, hw, sp_rank, (qs, o, do), (k, v))
     if (lse.device != qs.device or lse.dtype != torch.float32
-            or tuple(lse.shape) != (b, h, s) or not lse.is_contiguous()):
+            or tuple(lse.shape) != (b, h, sq) or not lse.is_contiguous()):
         raise ValueError(f"flash attention: lse is {tuple(lse.shape)} {lse.dtype} on "
-                         f"{lse.device}; expected contiguous {(b, h, s)} float32")
+                         f"{lse.device}; expected contiguous {(b, h, sq)} float32")
     dq, dk, dv = torch.empty_like(qs), torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty((b, h, s), dtype=torch.float32, device=qs.device)
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=qs.device)
     lib = _build.load("flash_attention_bwd", _BWD_SIGNATURES)
-    err = lib.ad_flash_attention_bwd(
-        qs.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        do.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        b * h, s, d, _KINDS[kind], n_frames, hw, _DTYPES[qs.dtype],
-        torch.cuda.current_stream(qs.device).cuda_stream)
-    _build.check(lib, err, "flash attention backward")
-    if kind == "dart":
-        dart_bwd_launches += 1
+    ptrs = (qs.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+            do.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
+    stream = torch.cuda.current_stream(qs.device).cuda_stream
+    if sp_rank is None:
+        err = lib.ad_flash_attention_bwd(*ptrs, b * h, sq, d, _KINDS[kind], n_frames, hw,
+                                         _DTYPES[qs.dtype], stream)
     else:
-        full_bwd_launches += 1
+        err = lib.ad_flash_attention_sp_bwd(*ptrs, b * h, sq, sk, d, _KINDS[kind], n_frames,
+                                            hw, sp_rank, _DTYPES[qs.dtype], stream)
+    _build.check(lib, err, "flash attention backward")
+    _count(kind, sp_rank, "bwd")
     return dq, dk, dv
 
 
@@ -262,29 +339,56 @@ def flash_attention_bwd(qs, k, v, o, lse, do, kind: str, n_frames: int, hw: int)
     return _launch_bwd(qs, k, v, o, lse, do, kind, n_frames, hw)
 
 
+def flash_attention_sp_fwd(qs, k, v, kind: str, n_frames: int, hw: int, sp_rank: int):
+    """(o, lse) of the pre-scaled query rows of seq rank sp_rank against the
+    gathered k, v: the CUDA kernel for CUDA tensors, the plain version for
+    CPU tensors. kind "dart" or "causal"; n_frames is T of the whole clip."""
+    if qs.device.type == "cpu":
+        return flash_attention_sp_fwd_plain(qs, k, v, kind, n_frames, hw, sp_rank)
+    return _launch_fwd(qs, k, v, kind, n_frames, hw, sp_rank)
+
+
+def flash_attention_sp_bwd(qs, k, v, o, lse, do, kind: str, n_frames: int, hw: int,
+                           sp_rank: int):
+    """(dq, partial dk, partial dv) of the sequence-parallel forward: the
+    CUDA kernels for CUDA tensors, the plain version for CPU tensors."""
+    if qs.device.type == "cpu":
+        return flash_attention_sp_bwd_plain(qs, k, v, o, lse, do, kind, n_frames, hw, sp_rank)
+    return _launch_bwd(qs, k, v, o, lse, do, kind, n_frames, hw, sp_rank)
+
+
 class _FlashAttention(torch.autograd.Function):
     """Masked flash attention of pre-scaled q under autograd. The forward
-    saves its inputs, o and lse; the backward recomputes the softmax."""
+    saves its inputs, o and lse; the backward recomputes the softmax.
+    sp_rank: None, or the seq rank of q's rows (k, v gathered)."""
 
     @staticmethod
-    def forward(ctx, qs, k, v, kind, n_frames, hw):
-        o, lse = flash_attention_fwd(qs, k, v, kind, n_frames, hw)
+    def forward(ctx, qs, k, v, kind, n_frames, hw, sp_rank):
+        if sp_rank is None:
+            o, lse = flash_attention_fwd(qs, k, v, kind, n_frames, hw)
+        else:
+            o, lse = flash_attention_sp_fwd(qs, k, v, kind, n_frames, hw, sp_rank)
         ctx.mask = (kind, n_frames, hw)
+        ctx.sp_rank = sp_rank
         ctx.save_for_backward(qs, k, v, o, lse)
         return o
 
     @staticmethod
     def backward(ctx, do):
         qs, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(qs, k, v, o, lse, do.contiguous(), *ctx.mask)
-        return dq, dk, dv, None, None, None
+        if ctx.sp_rank is None:
+            grads = flash_attention_bwd(qs, k, v, o, lse, do.contiguous(), *ctx.mask)
+        else:
+            grads = flash_attention_sp_bwd(qs, k, v, o, lse, do.contiguous(), *ctx.mask,
+                                           ctx.sp_rank)
+        return (*grads, None, None, None, None)
 
 
 def dart_attention(q, k, v, n_frames: int, tokens_per_frame: int):
     """DART-masked flash attention over the 2T-frame concat, differentiable
     in q, k and v. q, k, v: (b, heads, 2*T*hw, d)."""
     return _FlashAttention.apply(_prescale(q).contiguous(), k.contiguous(), v.contiguous(),
-                                 "dart", n_frames, tokens_per_frame)
+                                 "dart", n_frames, tokens_per_frame, None)
 
 
 def full_attention(q, k, v):
@@ -292,4 +396,63 @@ def full_attention(q, k, v):
     q, k, v: (batch, heads, S, d)."""
     s = q.shape[2]
     return _FlashAttention.apply(_prescale(q).contiguous(), k.contiguous(), v.contiguous(),
-                                 "full", 1, s)
+                                 "full", 1, s, None)
+
+
+# ---------------------------------------------------------------------------
+# Sequence parallel: Q rows stay on their seq rank, K/V are all-gathered
+
+def _sp_apply(kind, q, k, v, n_frames, tokens_per_frame, group):
+    kg, vg = gather_kv(k.contiguous(), v.contiguous(), group)
+    return _FlashAttention.apply(_prescale(q).contiguous(), kg, vg, kind, n_frames,
+                                 tokens_per_frame, dist.get_rank(group))
+
+
+def dart_attention_sp(q, k, v, n_frames: int, tokens_per_frame: int, group):
+    """Sequence-parallel DART flash attention, differentiable in q, k and v.
+    q, k, v: (b, heads, 2*t_l*hw, d), this rank's local DART concat (its t_l
+    = n_frames / sp clean frames, then the same frames noisy) of a clip of
+    n_frames = T frames split over the seq process group `group`. Returns
+    this rank's rows."""
+    return _sp_apply("dart", q, k, v, n_frames, tokens_per_frame, group)
+
+
+def causal_frame_attention_sp(q, k, v, n_frames: int, tokens_per_frame: int, group):
+    """Sequence-parallel frame-causal flash attention, differentiable in q,
+    k and v. q, k, v: (b, heads, t_l*hw, d), this rank's contiguous run of
+    t_l = n_frames / sp frames of the clip."""
+    return _sp_apply("causal", q, k, v, n_frames, tokens_per_frame, group)
+
+
+# The SP context: lets train-mode VideoAttention (and the causal convs'
+# halo, models/layers.py) reach the sequence-parallel path. As in the JAX
+# package it is process-wide: a training script that splits the clip's
+# frames over a seq group installs its mesh (parallel/mesh.py) here.
+_SP_CTX = None
+
+
+def set_sp_context(mesh):
+    """Install (or clear, mesh=None) the sequence-parallel context: a
+    parallel.Mesh whose seq group train-mode layers split frames over."""
+    global _SP_CTX
+    _SP_CTX = mesh
+    return mesh
+
+
+def sp_context():
+    return _SP_CTX
+
+
+def sp_flash_supported(n_frames_local: int) -> bool:
+    """Whether train-mode attention takes the sequence-parallel kernels: an
+    SP context with sp > 1 is installed. Raises when a rank holds fewer
+    than 2 frames (the causal convs' halo reads 2 frames of the previous
+    rank). The JAX package's splash tile gate (S % (sp * 128)) is not
+    carried over."""
+    mesh = _SP_CTX
+    if mesh is None or mesh.sp <= 1:
+        return False
+    if n_frames_local < 2:
+        raise ValueError(f"sequence parallelism needs at least 2 frames a rank, got "
+                         f"{n_frames_local} (sp={mesh.sp})")
+    return True

@@ -12,7 +12,8 @@ a 2T-frame sequence, clean copy = frames [0, T), noisy copy = [T, 2T):
 clean query i attends clean frames <= i; noisy query i+T attends clean
 frames < i plus only itself in the noisy half. `frame_visible` states the
 same rule per (query frame, key frame) pair, as the flash-attention kernels
-(csrc/flash_tile.cuh) evaluate it.
+(csrc/flash_tile.cuh) evaluate it. Under sequence parallelism the kernels
+first map each frame index to its global frame with `shard_frame`.
 """
 from __future__ import annotations
 
@@ -58,14 +59,35 @@ def frame_visible(kind: str, qf, kf, n_frames: int):
     numpy integer arrays). "dart": the DART rule over 2T = 2*n_frames
     frames, as the JAX package's DartMask (ops/flash_attention.py:47-54): a
     clean query frame (qf < T) sees frames kf <= qf; a noisy one sees clean
-    frames kf < qf - T and itself. "full": every frame."""
+    frames kf < qf - T and itself. "causal": frames kf <= qf, as its
+    CausalFrameMask (:70-84). "full": every frame."""
     qf, kf = np.asarray(qf), np.asarray(kf)
     if kind == "full":
         return np.ones(np.broadcast_shapes(qf.shape, kf.shape), bool)
+    if kind == "causal":
+        return kf <= qf
     if kind != "dart":
         raise ValueError(f"unknown mask kind {kind!r}")
     clean_q = qf < n_frames
     return (clean_q & (kf <= qf)) | (~clean_q & ((kf == qf) | (kf < qf - n_frames)))
+
+
+def shard_frame(j, t_local: int, n_frames: int, kind: str):
+    """Global frame index of frame j of the sequence-parallel layout (an int
+    or a numpy integer array). Under "dart" each of the sp seq ranks holds
+    a local DART concat -- its t_local clean frames, then the same frames
+    noisy -- and the K/V gathered over the ranks come rank-major: [clean_0
+    noisy_0 clean_1 noisy_1 ...]. Local or gathered frame j of rank
+    rho = j // (2 t_local) is clean global frame rho*t_local + (j mod
+    2 t_local) in its first half, noisy global frame T + rho*t_local +
+    (j mod 2 t_local - t_local) in its second. With t_local = n_frames (one
+    rank) the map is the identity. The "causal" and "full" layouts are
+    contiguous runs of frames: the identity."""
+    j = np.asarray(j)
+    if kind != "dart":
+        return j
+    rho, r = j // (2 * t_local), j % (2 * t_local)
+    return np.where(r < t_local, rho * t_local + r, n_frames + rho * t_local + r - t_local)
 
 
 def expand_to_tokens(frame_mask: np.ndarray, tokens_per_frame: int) -> np.ndarray:

@@ -3,6 +3,8 @@
     python -m autoregressive_diffusion_tpu_torch.train [--steps 5] [--batch 8]
         [--frames 8] [--dtype bf16] [--seed 0] [--just-2d-every 4]
         [--config gym|tiny] [--device cuda] [--profile TRACE.json]
+    torchrun --nproc-per-node N -m autoregressive_diffusion_tpu_torch.train
+        --dp DP --sp SP [--backend nccl|gloo] ...   (DP * SP = N)
 
 Counterpart of bench.py's training benchmark: builds the flagship gym model
 (64x64x8 latents, 46M parameters) with seeded random weights, creates the
@@ -15,6 +17,14 @@ JSON summary. `--config tiny --device cpu` runs a few-layer model through
 the kernels' plain versions; the full width belongs on the card.
 `python -m autoregressive_diffusion_tpu_torch.train` runs this module's main
 (train/__main__.py), since `train` is the package of the training modules.
+
+Under torchrun with --dp/--sp (the counterpart of scripts/cs_train.py --sp,
+on the gym model and synthetic latents) every rank builds the same weights
+from the seed, takes its samples (split over `data`) and frames (split over
+`seq`) of the same synthetic batch, and runs the data x seq parallel step;
+rank 0 prints the rows, the JSON summary and whether the ranks' parameters
+still agree. Several ranks share one card under --backend gloo (NCCL takes
+one rank a card); --device cpu needs gloo.
 """
 from __future__ import annotations
 
@@ -25,6 +35,7 @@ import time
 import torch
 
 from ..generate import build_model
+from ..parallel import check_replica_consistency, create_mesh, seq_slice
 from ..utils.profiling import kernel_times, window_summary
 from .loss import EDM2LossConfig
 from .optim import make_optimizer
@@ -43,13 +54,15 @@ MATMUL_KERNELS = ("gemm", "cutlass", "softmax", "bmm", "xmma")
 
 
 def build_trainer(device="cuda", body_dtype=torch.bfloat16, seed: int = 0,
-                  batch: int = 8, learning_rate=1e-3, **overrides):
+                  batch: int = 8, learning_rate=1e-3, mesh=None, **overrides):
     """(state, train_step) for the gym denoiser with seeded random weights
-    on `device`; `overrides` change UNetConfig fields."""
+    on `device`; `overrides` change UNetConfig fields. With a `mesh` the
+    step is this rank's part of a data x seq parallel step (`batch` stays
+    the global batch)."""
     model = build_model(device, body_dtype, seed, **overrides).train()
     tx = make_optimizer(learning_rate)
     state = create_train_state(model, tx)
-    return state, make_train_step(GYM_LOSS, tx, batch)
+    return state, make_train_step(GYM_LOSS, tx, batch, mesh=mesh)
 
 
 def synthetic_batch(cfg, batch: int, frames: int, seed: int, device):
@@ -67,12 +80,13 @@ def _sync(dev):
 
 
 def run_steps(state, train_step, images, cond, steps: int, seed: int = 0,
-              just_2d_every: int = 4, log=None) -> list:
+              just_2d_every: int = 4, log=None, mesh=None) -> list:
     """Run `steps` train steps; step i (counted from the state's step) is a
     just_2d step when (i + 1) % just_2d_every == 0. Returns one dict a step:
     loss, unweighted loss, gradient norm, seconds on the host clock around a
-    synchronise, samples/s."""
+    synchronise, samples/s (of the global batch, under a `mesh`)."""
     dev = images.device
+    batch = images.shape[0] * (1 if mesh is None else mesh.dp)
     rows = []
     for _ in range(steps):
         i = state.step
@@ -85,7 +99,7 @@ def run_steps(state, train_step, images, cond, steps: int, seed: int = 0,
         dt = time.perf_counter() - t0
         row = dict(step=i, just_2d=just_2d, loss=loss, unweighted=float(m["unweighted"]),
                    grad_norm=float(m["grad_norm"]), seconds=dt,
-                   samples_per_sec=images.shape[0] / dt)
+                   samples_per_sec=batch / dt)
         rows.append(row)
         if log is not None:
             log(f"step {i} {'just_2d' if just_2d else 'dart':7s} loss={loss:.4f} "
@@ -97,10 +111,12 @@ def run_steps(state, train_step, images, cond, steps: int, seed: int = 0,
 def profile_steps(state, train_step, images, cond, steps: int = 2, seed: int = 0,
                   trace_path=None) -> dict:
     """torch.profiler over `steps` DART train steps: wall time, device busy
-    time and idle share, launches, and device time by kernel group (conv
+    time and idle share, launches, device time by kernel group (conv
     forward, conv backward, the flash-attention kernels, other matrix
-    products and softmax, optimizer and elementwise), all per step. Writes
-    a Chrome trace if asked."""
+    products and softmax, copies between host and card, optimizer and
+    elementwise), and the time inside torch.distributed collectives (the
+    gloo or nccl work, waits for the other ranks included), all per step
+    of this process. Writes a Chrome trace if asked."""
     from torch.profiler import ProfilerActivity, profile
 
     dev = images.device
@@ -118,9 +134,11 @@ def profile_steps(state, train_step, images, cond, steps: int = 2, seed: int = 0
 
     w = window_summary(prof, wall, steps)
     groups = {"conv_forward": 0.0, "conv_backward": 0.0, "attention_kernels": 0.0,
-              "matmul_attention": 0.0, "optimizer_elementwise_other": 0.0}
+              "matmul_attention": 0.0, "memcpy": 0.0, "optimizer_elementwise_other": 0.0}
     for key, us in kernel_times(prof).items():
-        if any(k in key for k in ATTENTION_KERNELS):
+        if "Memcpy" in key:
+            groups["memcpy"] += us
+        elif any(k in key for k in ATTENTION_KERNELS):
             groups["attention_kernels"] += us
         elif "fused_conv_fwd_kernel" in key:
             groups["conv_forward"] += us
@@ -135,6 +153,8 @@ def profile_steps(state, train_step, images, cond, steps: int = 2, seed: int = 0
             "device_idle_share": w["device_idle_share"],
             "kernel_launches_per_step": w["kernel_launches"],
             "device_ms_per_step_by_group": {k: v / 1e3 / steps for k, v in groups.items()},
+            "collectives_ms_per_step": sum(e.cpu_time_total for e in prof.key_averages()
+                                           if e.key.startswith(("gloo:", "nccl:"))) / 1e3 / steps,
             "top_device_ms_per_step": w["top_device_ms"]}
 
 
@@ -154,18 +174,50 @@ def main(argv=None):
                     help="gym: the full-width 46M model; tiny: a few layers, for the CPU")
     ap.add_argument("--profile", default=None, metavar="TRACE.json",
                     help="also profile two more DART steps; writes a Chrome trace")
+    ap.add_argument("--dp", type=int, default=1, help="data-parallel ranks (under torchrun)")
+    ap.add_argument("--sp", type=int, default=1,
+                    help="sequence-parallel ranks: the clip's frames split over them")
+    ap.add_argument("--backend", choices=("nccl", "gloo"), default="nccl",
+                    help="torch.distributed backend of a --dp/--sp run")
     args = ap.parse_args(argv)
 
     overrides = TINY_CONFIG if args.config == "tiny" else {}
-    state, train_step = build_trainer(args.device, DTYPES[args.dtype], args.seed, args.batch,
-                                      **overrides)
+    mesh, device = None, args.device
+    if args.dp * args.sp > 1:
+        mesh = create_mesh(args.dp, args.sp, args.backend, args.device)
+        device = mesh.device
+    state, train_step = build_trainer(device, DTYPES[args.dtype], args.seed, args.batch,
+                                      mesh=mesh, **overrides)
     model = state.model
     dev = next(model.parameters()).device
     images, cond = synthetic_batch(model.cfg, args.batch, args.frames, args.seed + 1, dev)
+    if mesh is not None:
+        images, cond = seq_slice(images, mesh), seq_slice(cond, mesh)
+    lead = mesh is None or mesh.rank == 0
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     rows = run_steps(state, train_step, images, cond, args.steps, args.seed,
-                     args.just_2d_every, log=print)
+                     args.just_2d_every, log=print if lead else None, mesh=mesh)
+    prof = None
+    if args.profile:  # every rank runs the steps; rank 0 keeps the trace
+        prof = profile_steps(state, train_step, images, cond, 2, args.seed,
+                             args.profile if lead else None)
+    extra = {}
+    if mesh is not None:
+        named = dict(model.named_parameters())
+        named.update({f"ema{i}.{n}": v for i, e in enumerate(state.ema) for n, v in e.items()})
+        extra = dict(dp=mesh.dp, sp=mesh.sp, backend=mesh.backend,
+                     replica_mismatches=check_replica_consistency(named, mesh))
+        torch.distributed.destroy_process_group()
+    if lead:
+        _print_summary(args, model, rows, dev, extra)
+        if prof is not None:
+            print(json.dumps({"profile": prof}))
+    if extra.get("replica_mismatches"):
+        raise SystemExit("the ranks' parameters disagree after the steps")
+
+
+def _print_summary(args, model, rows, dev, extra):
     dart = [r for r in rows[1:] if not r["just_2d"]] or rows
     print(json.dumps({
         "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
@@ -176,11 +228,8 @@ def main(argv=None):
         "dart_samples_per_sec": args.batch * len(dart) / sum(r["seconds"] for r in dart),
         "final_loss": rows[-1]["loss"], "finite": all(r["loss"] == r["loss"] for r in rows),
         "peak_mem_mb": (torch.cuda.max_memory_allocated(dev) / 2 ** 20
-                        if dev.type == "cuda" else None),
+                        if dev.type == "cuda" else None), **extra,
     }))
-    if args.profile:
-        print(json.dumps({"profile": profile_steps(state, train_step, images, cond, 2,
-                                                   args.seed, args.profile)}))
 
 
 if __name__ == "__main__":

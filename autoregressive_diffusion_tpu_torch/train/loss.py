@@ -56,10 +56,19 @@ def edm2_loss(model, images: torch.Tensor, seed: int, cfg: EDM2LossConfig,
               conditioning: Optional[torch.Tensor] = None,
               coefs: Optional[torch.Tensor] = None, just_2d: bool = False,
               sample_offset: int = 0, sigma: Optional[torch.Tensor] = None,
-              noise: Optional[torch.Tensor] = None):
+              noise: Optional[torch.Tensor] = None, mesh=None):
     """images: (b, t, h, w, c) latents. Returns (scalar loss, aux) where aux
     carries the per-frame sigmas and weighted losses for the loss-fit
     history plus the unweighted mean.
+
+    With a `mesh` (parallel.Mesh; sequence-parallel training) images and
+    conditioning are this rank's samples and frames (parallel.seq_slice),
+    sample_offset is the global index of its first sample, and the loss
+    and the unweighted mean are this rank's share of the global means: sums
+    over its (sample, frame) terms over the count of the whole
+    microbatch's (b * dp samples, t * sp frames), to be summed over all
+    ranks. Each rank draws the whole sample's sigma and eps and keeps its
+    frames, so the split step draws what the one-process step draws.
 
     sigma and noise are drawn per sample from generators keyed by
     (seed, sample_offset + i), so gradient accumulation over microbatch
@@ -77,11 +86,18 @@ def edm2_loss(model, images: torch.Tensor, seed: int, cfg: EDM2LossConfig,
         cond = (torch.cat([conditioning, conditioning], dim=1)
                 if conditioning is not None else None)
 
+    sp, dp = (1, 1) if mesh is None else (mesh.sp, mesh.dp)
     if sigma is None:
-        draws = [draw_sigma_noise(seed, sample_offset + i, t, images.shape[2:], cfg,
+        draws = [draw_sigma_noise(seed, sample_offset + i, t * sp, images.shape[2:], cfg,
                                   just_2d, dev) for i in range(b)]
         sigma = torch.stack([d[0] for d in draws])
         eps = torch.stack([d[1] for d in draws]).to(cat_images.dtype)
+        if sp > 1:  # this rank's frames of each half
+            r = mesh.seq_rank
+            keep = torch.arange(r * t, (r + 1) * t, device=dev)
+            if not just_2d:
+                keep = torch.cat([keep, keep + t * sp])
+            sigma, eps = sigma[:, keep], eps[:, keep]
         noise = sigma[:, :, None, None, None] * eps
     elif noise is None:
         eps = torch.randn(cat_images.shape, generator=_sample_generator(seed, 0, dev),
@@ -96,10 +112,11 @@ def edm2_loss(model, images: torch.Tensor, seed: int, cfg: EDM2LossConfig,
     sd = cfg.sigma_data
     weight = (sig ** 2 + sd ** 2) / (sig * sd) ** 2
     losses = losses * weight
-    unweighted = losses.mean()
+    count = losses.numel() * sp * dp  # the (sample, frame) terms of all ranks
+    unweighted = losses.sum() / count
 
     mean_loss = fourier_eval(coefs, sig) if coefs is not None else 1.0
-    normalized = (losses / mean_loss).mean()
+    normalized = (losses / mean_loss).sum() / count
     aux = dict(sigma=sig.detach(), losses=losses.detach(), unweighted=unweighted.detach())
     return normalized, aux
 

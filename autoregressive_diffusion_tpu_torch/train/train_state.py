@@ -6,6 +6,13 @@ the power-function EMA update, optionally accumulating gradients over
 microbatch slices. Where the JAX step is a pure function of an immutable
 state, this one updates the model's parameters, the optimizer state and the
 EMA copies in place and returns the same TrainState object.
+
+With a mesh (parallel.create_mesh) the step is one rank's part of a
+data x seq parallel step: the rank's samples and frames run through the
+model under the sequence-parallel context, the gradients are summed over
+all ranks before the clip (so its norm is the global one), and the
+optimizer, the forced weight norm and the EMA then run identically on
+every rank. The metrics are global.
 """
 from __future__ import annotations
 
@@ -14,6 +21,9 @@ from typing import Any, Optional, Tuple
 
 import torch
 
+from ..ops.flash_attention import set_sp_context, sp_context
+from ..parallel.collectives import all_reduce_sum_
+from ..parallel.mesh import all_reduce_grads, gather_batch
 from .ema import ema_update, init_ema, std_to_exp
 from .loss import EDM2LossConfig, edm2_loss
 from .loss_weight import init_coefs
@@ -43,9 +53,13 @@ def create_train_state(model, tx: ClippedAdamW, ema_stds=(0.050, 0.100)) -> Trai
 
 
 def make_train_step(loss_cfg: EDM2LossConfig, tx: ClippedAdamW, batch_size: int,
-                    microbatch: Optional[int] = None):
+                    microbatch: Optional[int] = None, mesh=None):
     """Returns train_step(state, images, conditioning, seed, just_2d=False,
     sigma=None, noise=None) -> (state, metrics).
+
+    `batch_size` is the global batch. With a `mesh`, images and
+    conditioning are this rank's slice (parallel.seq_slice) and `microbatch`
+    counts this rank's samples; every rank of the mesh must call the step.
 
     If `microbatch` is given and smaller than the batch, gradients are
     accumulated over microbatch slices (constant activation memory); slice j
@@ -62,15 +76,16 @@ def make_train_step(loss_cfg: EDM2LossConfig, tx: ClippedAdamW, batch_size: int,
         if b % m:
             raise ValueError(f"batch {b} is not a multiple of microbatch {m}")
         n = b // m
+        first = 0 if mesh is None else mesh.data_rank * b  # global index of sample 0
         loss_sum, unweighted, sigs, lss = 0.0, 0.0, [], []
         for j in range(n):
             sl = slice(j * m, (j + 1) * m)
             loss, aux = edm2_loss(
                 model, images[sl], seed, loss_cfg,
                 conditioning[sl] if conditioning is not None else None, state.coefs,
-                just_2d, sample_offset=j * m,
+                just_2d, sample_offset=first + j * m,
                 sigma=None if sigma is None else sigma[sl],
-                noise=None if noise is None else noise[sl])
+                noise=None if noise is None else noise[sl], mesh=mesh)
             (loss / n).backward()  # gradients add up in .grad
             loss_sum = loss_sum + loss.detach() / n
             unweighted = unweighted + aux["unweighted"] / n
@@ -79,9 +94,24 @@ def make_train_step(loss_cfg: EDM2LossConfig, tx: ClippedAdamW, batch_size: int,
         aux = dict(sigma=torch.cat(sigs), losses=torch.cat(lss), unweighted=unweighted)
         return loss_sum, aux
 
+    def sharded_grads_of(state, images, conditioning, seed, just_2d, sigma, noise):
+        """grads_of under the mesh's SP context, then the sums over all ranks."""
+        outer = sp_context()
+        set_sp_context(mesh)
+        try:
+            loss, aux = grads_of(state, images, conditioning, seed, just_2d, sigma, noise)
+        finally:
+            set_sp_context(outer)
+        all_reduce_grads(state.model.parameters(), mesh)
+        totals = all_reduce_sum_(torch.stack([loss, aux["unweighted"]]).float())
+        aux = dict(sigma=gather_batch(aux["sigma"], mesh),
+                   losses=gather_batch(aux["losses"], mesh), unweighted=totals[1])
+        return totals[0], aux
+
     def train_step(state: TrainState, images, conditioning, seed: int,
                    just_2d: bool = False, sigma=None, noise=None):
-        loss, aux = grads_of(state, images, conditioning, seed, just_2d, sigma, noise)
+        grads = grads_of if mesh is None else sharded_grads_of
+        loss, aux = grads(state, images, conditioning, seed, just_2d, sigma, noise)
         grad_norm = tx.update(state.opt_state, state.step)
         params = state.params
         forced_weight_norm(params)

@@ -48,7 +48,20 @@ Phases, each of which fails the run with a non-zero exit:
      counts its attention layers (a DART step: one DART forward and backward
      per video layer, one full per frame layer; a just_2d step: one full per
      attention layer). Loss and gradients finite, unit-norm weights, EMA
-     moved.
+     moved;
+  8. sequence parallelism (row 8): every seq rank's forward and backward
+     kernel call (the flash kernels' SP entry points) against its plain
+     version at the gym's video-attention shape, DART and frame-causal,
+     sp = 2 and 4, fp32 and bf16, and the ranks' stacked o and summed dk, dv
+     against the one-rank kernels, with times of each call, its plain
+     version and F.scaled_dot_product_attention on the same rows and mask;
+     then two ranks spawned on this card under gloo (the main path of the
+     slice): a small fp32 model's DART and just_2d steps against the same
+     steps in one process on the card, and the full-width gym model, bf16,
+     batch 8, T=8 split 4 + 4 frames, three DART steps and one just_2d step
+     with every launch counter zeroed before and read after each step in
+     each rank (a DART step: 6 dart_sp forward and backward, no one-rank
+     DART launch, 5 full, 58 conv forward and backward).
 Then it prints the `kernels` JSON line, the nvidia-smi line and, last,
 {"ok": true, "device": {...}}. It exits non-zero, printing no result, when
 no CUDA device is present or the port's package is not beside it.
@@ -738,6 +751,285 @@ def train_phase(build_trainer, synthetic_batch, run_steps, fc, fa, n_convs):
 
 
 # ---------------------------------------------------------------------------
+# phase 8: sequence parallel (row 8): the kernels, then two ranks on the card
+
+SP_COUNTERS = ("dart_sp_fwd_launches", "dart_sp_bwd_launches", "causal_sp_fwd_launches",
+               "causal_sp_bwd_launches")
+# a tiny model with every layer kind and action labels (per-frame cvec rows)
+SP_SMALL = dict(img_resolution=16, img_channels=4, label_dim=4, model_channels=16,
+                channel_mult=(1, 2), num_blocks=1, video_attn_resolutions=(8,),
+                frame_attn_resolutions=(16,), max_frames=8, channels_per_head=16)
+
+
+def gathered_order(masks, kind, n_frames, hw, sp):
+    """The clip's token index of each token of the rank-major gathered
+    layout of `sp` seq ranks (x_gathered = x_clip[:, :, index])."""
+    import numpy as np
+    s = (2 if kind == "dart" else 1) * n_frames * hw
+    j = np.arange(s)
+    idx = masks.shard_frame(j // hw, n_frames // sp, n_frames, kind) * hw + j % hw
+    return torch.from_numpy(idx).to(DEV)
+
+
+def sp_cost(fa, kind, b, heads, n_frames, hw, d, sp, rank, dtype):
+    """((forward operations, bytes), (backward operations, bytes)) of one
+    rank's call: a multiply-add is two operations, over the (query, key)
+    pairs the rank's mask lets through; the forward reads its q rows and the
+    gathered k, v and writes o and lse rows, the backward reads q, o, dO,
+    lse rows and k, v and writes dq rows and the partial dk, dv."""
+    s = (2 if kind == "dart" else 1) * n_frames * hw
+    sq = s // sp
+    pairs = int(fa._token_mask_np(kind, n_frames, hw, sq, sp, rank).sum())
+    bh = b * heads
+    item = torch.tensor([], dtype=dtype).element_size()
+    rows, keys = bh * sq * d * item, bh * s * d * item
+    return ((4 * d * pairs * bh, 2 * rows + 2 * keys + 4 * bh * sq),
+            (10 * d * pairs * bh, 4 * rows + 4 * keys + 4 * bh * sq))
+
+
+def sp_kernel_phase(fa, masks, F, b=8, heads=4, hw=64, d=64):
+    """Every seq rank's forward and backward kernel calls against their
+    plain versions at the gym's video-attention shape (1024 tokens: DART
+    over T=8, frame-causal over 16 frames), sp = 2 and 4, fp32 and bf16;
+    the ranks' stacked o and dq and summed dk, dv against the one-rank
+    kernels (DART: row 4; causal: the prefill kernel's o, row 5, and the
+    plain backward); times of each rank's call, its plain version and
+    F.scaled_dot_product_attention on the same rows and mask."""
+    dev = torch.device(DEV)
+    results = {}
+    for kind, n_frames in (("dart", 8), ("causal", 16)):
+        s = (2 if kind == "dart" else 1) * n_frames * hw
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[-1]
+            g = torch.Generator(device=dev).manual_seed(300 + n_frames)
+            q, k, v, do = (torch.randn((b, heads, s, d), generator=g, device=dev)
+                           for _ in range(4))
+            qs, k, v, do = (q * d ** -0.5).to(dtype), k.to(dtype), v.to(dtype), do.to(dtype)
+            if kind == "dart":
+                o1, lse1 = fa.flash_attention_fwd(qs, k, v, kind, n_frames, hw)
+                g1 = fa.flash_attention_bwd(qs, k, v, o1, lse1, do, kind, n_frames, hw)
+                o_one = o1
+            else:
+                o1, lse1 = fa.flash_attention_fwd_plain(qs, k, v, kind, n_frames, hw)
+                g1 = fa.flash_attention_bwd_plain(qs, k, v, o1, lse1, do, kind, n_frames, hw)
+                o_one = fa.prefill_attention(qs, k, v, n_frames, n_frames, 0, hw)
+            for sp in (2, 4):
+                sq = s // sp
+                idx = gathered_order(masks, kind, n_frames, hw, sp)
+                kg, vg = k[:, :, idx].contiguous(), v[:, :, idx].contiguous()
+                outs, dqs, dk_sum, dv_sum = [], [], 0.0, 0.0
+                for r in range(sp):
+                    rows = idx[r * sq:(r + 1) * sq]
+                    q_r, do_r, o_in, lse_in = (a[:, :, rows].contiguous()
+                                               for a in (qs, do, o1, lse1))
+                    args = (kind, n_frames, hw, r)
+                    o_r, lse_r = fa.flash_attention_sp_fwd(q_r, kg, vg, *args)
+                    o_p, lse_p = fa.flash_attention_sp_fwd_plain(q_r, kg, vg, *args)
+                    grads = fa.flash_attention_sp_bwd(q_r, kg, vg, o_in, lse_in, do_r, *args)
+                    grads_p = fa.flash_attention_sp_bwd_plain(q_r, kg, vg, o_in, lse_in, do_r,
+                                                              *args)
+                    torch.cuda.synchronize()
+                    outs.append(o_r)
+                    dqs.append(grads[0])
+                    dk_sum, dv_sum = dk_sum + grads[1].float(), dv_sum + grads[2].float()
+                    ok, errs, worst = True, {}, 0.0
+                    for name, got, want in zip(("o", "lse", "dq", "dk", "dv"),
+                                               (o_r, lse_r) + grads, (o_p, lse_p) + grads_p):
+                        diff = got.float() - want.float()
+                        max_abs = float(diff.abs().max())
+                        worst = max(worst, max_abs)
+                        if dtype == torch.float32 or name == "lse":
+                            err, tol = max_abs, flash_tol(want.float(), s)
+                        else:
+                            err, tol = float(diff.std() / want.float().std()), TOL_BF16
+                        errs[name] = (err, tol)
+                        ok = ok and err <= tol and bool(torch.isfinite(got).all())
+                    mask = fa._token_mask(kind, n_frames, hw, sq, dev, sp, r)
+                    leaves = [a.detach().requires_grad_(True) for a in (q_r, kg, vg)]
+
+                    def sdpa():
+                        return F.scaled_dot_product_attention(*leaves, attn_mask=mask, scale=1.0)
+
+                    def sdpa_fb():
+                        sdpa().backward(do_r)
+
+                    ms_f = time_ms(lambda: fa.flash_attention_sp_fwd(q_r, kg, vg, *args))
+                    ms_b = time_ms(lambda: fa.flash_attention_sp_bwd(q_r, kg, vg, o_in, lse_in,
+                                                                     do_r, *args))
+                    plain_f = time_ms(lambda: fa.flash_attention_sp_fwd_plain(q_r, kg, vg, *args),
+                                      10, 1)
+                    plain_b = time_ms(lambda: fa.flash_attention_sp_bwd_plain(
+                        q_r, kg, vg, o_in, lse_in, do_r, *args), 10, 1)
+                    with torch.no_grad():
+                        lib_f = time_ms(sdpa)
+                    lib_fb = time_ms(sdpa_fb)
+                    (ff, fb), (bf, bb) = sp_cost(fa, kind, b, heads, n_frames, hw, d, sp, r, dtype)
+                    bound_f, by_f = bound(ff, fb, dtype)
+                    bound_b, by_b = bound(bf, bb, dtype)
+                    res = dict(ok=bool(ok), max_abs_err=worst, errs=errs, fwd_ms=ms_f,
+                               bwd_ms=ms_b, plain_fwd_ms=plain_f, plain_bwd_ms=plain_b,
+                               library_fwd_ms=lib_f, library_bwd_ms=max(lib_fb - lib_f, 0.0),
+                               bound_fwd_ms=bound_f, bound_bwd_ms=bound_b, bound_fwd_by=by_f,
+                               bound_bwd_by=by_b, fwd_gflop=ff / 1e9, bwd_gflop=bf / 1e9,
+                               fwd_mb=fb / 1e6, bwd_mb=bb / 1e6)
+                    results[(kind, dname, sp, r)] = res
+                    detail = " ".join(f"{n}={e:.2e}/{tl:.1e}" for n, (e, tl) in errs.items())
+                    log(f"# sp-kernel {dname:8s} {kind:6s} sp={sp} rank={r} q=({b},{heads},{sq},"
+                        f"{d}) kv S={s} ok={ok} {detail} | ms fwd={ms_f:.4f} bwd={ms_b:.4f} "
+                        f"plain={plain_f:.4f}+{plain_b:.4f} sdpa={lib_f:.4f}+"
+                        f"{res['library_bwd_ms']:.4f} bound={bound_f:.5f}+{bound_b:.5f} "
+                        f"({by_f}, {by_b}; {ff / 1e9:.3f}+{bf / 1e9:.3f} GFLOP, "
+                        f"{fb / 1e6:.1f}+{bb / 1e6:.1f} MB)")
+                ok, errs = True, {}
+                for name, got, want in (("o", torch.cat(outs, dim=2), o_one[:, :, idx]),
+                                        ("dq", torch.cat(dqs, dim=2), g1[0][:, :, idx]),
+                                        ("dk", dk_sum, g1[1][:, :, idx]),
+                                        ("dv", dv_sum, g1[2][:, :, idx])):
+                    diff = got.float() - want.float()
+                    if dtype == torch.float32:
+                        err, tol = float(diff.abs().max()), flash_tol(want.float(), s)
+                    else:
+                        err, tol = float(diff.std() / want.float().std()), TOL_BF16
+                    errs[name] = (err, tol)
+                    ok = ok and err <= tol
+                results[(kind, dname, sp, "stack")] = dict(ok=bool(ok), errs=errs)
+                detail = " ".join(f"{n}={e:.2e}/{tl:.1e}" for n, (e, tl) in errs.items())
+                log(f"# sp-kernel {dname:8s} {kind:6s} sp={sp} stacked o, dq and summed dk, dv "
+                    f"against the one-rank {'kernel' if kind == 'dart' else 'prefill kernel/plain'}"
+                    f": ok={ok} {detail}")
+    return results
+
+
+def sp_rank_run(small_images, small_cond):
+    """One rank of the two-rank sequence-parallel run (spawned by
+    run_local_ranks, sharing cuda:0 under gloo): a small fp32 model's DART
+    and just_2d steps, then the full-width gym model's three DART steps and
+    one just_2d step with every launch counter zeroed before and read after
+    each step. Returns numbers and CPU tensors."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from autoregressive_diffusion_tpu_torch.models.attention import (FrameAttention,
+                                                                     VideoAttention)
+    from autoregressive_diffusion_tpu_torch.ops import flash_attention as fa
+    from autoregressive_diffusion_tpu_torch.ops import fused_conv as fc
+    from autoregressive_diffusion_tpu_torch.parallel import (check_replica_consistency,
+                                                             create_mesh, seq_slice)
+    from autoregressive_diffusion_tpu_torch.train import build_trainer, run_steps, synthetic_batch
+
+    mesh = create_mesh(1, 2, "gloo", "cuda")
+    dev = mesh.device
+    out = dict(rank=mesh.rank, device=str(dev))
+
+    def replicas(state):
+        named = dict(state.model.named_parameters())
+        named.update({f"ema{i}.{n}": v for i, e in enumerate(state.ema) for n, v in e.items()})
+        return check_replica_consistency(named, mesh)
+
+    state, step = build_trainer(dev, torch.float32, seed=3, batch=small_images.shape[0],
+                                mesh=mesh, **SP_SMALL)
+    images, cond = seq_slice(small_images.to(dev), mesh), seq_slice(small_cond.to(dev), mesh)
+    losses = []
+    for i, just_2d in enumerate((False, True)):
+        state, m = step(state, images, cond, 3000 + i, just_2d=just_2d)
+        losses.append(float(m["loss"]))
+    out["small"] = dict(losses=losses, mismatches=replicas(state),
+                        params={n: p.detach().cpu() for n, p in state.model.named_parameters()})
+    del state, step
+    torch.cuda.empty_cache()
+
+    b, t = 8, 8
+    state, step = build_trainer(dev, torch.bfloat16, seed=0, batch=b, mesh=mesh)
+    model = state.model
+    n_video = sum(isinstance(x, VideoAttention) for x in model.modules())
+    n_frame = sum(isinstance(x, FrameAttention) for x in model.modules())
+    images, cond = synthetic_batch(model.cfg, b, t, 1, dev)
+    images, cond = seq_slice(images, mesh), seq_slice(cond, mesh)
+    names = SP_COUNTERS + FLASH_COUNTERS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rows, counts = [], []
+    for i in range(4):  # DART, DART, DART, just_2d
+        for n in names:
+            setattr(fa, n, 0)
+        fc.conv_fwd_launches = fc.conv_bwd_launches = 0
+        rows += run_steps(state, step, images, cond, 1, seed=0, just_2d_every=4, mesh=mesh)
+        c = {n.replace("_launches", ""): getattr(fa, n) for n in names}
+        c.update(conv_fwd=fc.conv_fwd_launches, conv_bwd=fc.conv_bwd_launches)
+        counts.append(c)
+        rows[-1]["grads_finite"] = all(bool(torch.isfinite(p.grad).all())
+                                       for p in model.parameters())
+    out["gym"] = dict(rows=rows, counts=counts, n_video=n_video, n_frame=n_frame,
+                      peak_mem_mb=torch.cuda.max_memory_allocated() / 2 ** 20,
+                      mismatches=replicas(state), local_batch=tuple(images.shape))
+    torch.distributed.destroy_process_group()
+    return out
+
+
+def sp_path_phase(build_trainer, n_convs):
+    """The main path of row 8: two seq ranks on cuda:0 under gloo
+    (sp_rank_run), held against the one-process step of the small model on
+    the card, and the gym steps' launch counts."""
+    from autoregressive_diffusion_tpu_torch.parallel import run_local_ranks
+    failures = []
+    g = torch.Generator().manual_seed(6)
+    b, t = 2, 4
+    images = torch.randn((b, t, 16, 16, 4), generator=g)
+    cond = torch.randint(0, 4, (b, t), generator=g)
+    state, step = build_trainer(DEV, torch.float32, seed=3, batch=b, **SP_SMALL)
+    want = []
+    for i, just_2d in enumerate((False, True)):
+        state, m = step(state, images.to(DEV), cond.to(DEV), 3000 + i, just_2d=just_2d)
+        want.append(float(m["loss"]))
+    want_params = {n: p.detach().cpu() for n, p in state.model.named_parameters()}
+    del state, step
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = run_local_ranks(sp_rank_run, 2, (images, cond), timeout=600)
+    wall = time.perf_counter() - t0
+    for res in ranks:
+        r, small, gym = res["rank"], res["small"], res["gym"]
+        dparam = max(float((small["params"][n] - w).abs().max()) for n, w in want_params.items())
+        rel = max(abs(a - w) / abs(w) for a, w in zip(small["losses"], want))
+        ok = rel <= 2e-4 and dparam < 2e-4 and not small["mismatches"]
+        log(f"# sp small fp32 model, rank {r} of 2 on {res['device']} (gloo) vs one process on "
+            f"the card: losses {small['losses']} vs {want} (max rel {rel:.2e}, tol 2e-4), "
+            f"max |dparam| {dparam:.2e} (tol 2e-4), replica mismatches "
+            f"{len(small['mismatches'])} ok={ok}")
+        if not ok:
+            failures.append(f"sp small-model step, rank {r}")
+        n_video, n_frame = gym["n_video"], gym["n_frame"]
+        for i, (row, c) in enumerate(zip(gym["rows"], gym["counts"])):
+            j2 = row["just_2d"]
+            want_c = dict(dart_sp_fwd=0 if j2 else n_video, dart_sp_bwd=0 if j2 else n_video,
+                          causal_sp_fwd=0, causal_sp_bwd=0, dart_fwd=0, dart_bwd=0,
+                          full_fwd=n_video + n_frame if j2 else n_frame,
+                          full_bwd=n_video + n_frame if j2 else n_frame,
+                          conv_fwd=n_convs, conv_bwd=n_convs)
+            finite = row["loss"] == row["loss"] and abs(row["loss"]) < float("inf")
+            ok = c == want_c and finite and row["grads_finite"]
+            log(f"# sp gym rank {r} step {i} {'just_2d' if j2 else 'dart':7s} "
+                f"loss={row['loss']:.4f} grad_norm={row['grad_norm']:.4f} "
+                f"step_ms={row['seconds'] * 1e3:.1f} samples_per_sec={row['samples_per_sec']:.3f} "
+                f"launches {c} ok={ok}")
+            if not ok:
+                failures.append(f"sp gym rank {r} step {i}: launches {c} (want {want_c}) or "
+                                f"not finite")
+        dart = [x for x in gym["rows"][1:] if not x["just_2d"]]
+        step_ms = 1e3 * sum(x["seconds"] for x in dart) / len(dart)
+        log(f"# sp gym rank {r}: local batch {gym['local_batch']}, DART step {step_ms:.1f} ms "
+            f"({8e3 / step_ms:.3f} samples/s of the global batch 8, steps 1-2), just_2d step "
+            f"{gym['rows'][3]['seconds'] * 1e3:.1f} ms, peak_mem_mb={gym['peak_mem_mb']:.1f}, "
+            f"replica mismatches {len(gym['mismatches'])}")
+        if gym["mismatches"]:
+            failures.append(f"sp gym rank {r}: ranks disagree: {gym['mismatches'][:3]}")
+    if [x["loss"] for x in ranks[0]["gym"]["rows"]] != [x["loss"] for x in ranks[1]["gym"]["rows"]]:
+        failures.append("sp gym: the ranks report different global losses")
+    log(f"# sp path: two ranks, {wall:.1f} s wall from spawn to the last result")
+    return failures, ranks
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -860,6 +1152,13 @@ def main(argv=None):
     train_flash = train_launches[2:]
     failures += train_failures
 
+    # phase 8: sequence parallelism
+    sp_results = sp_kernel_phase(fa, masks, F)
+    failures += [f"sp attention kernels {k}" for k, r in sp_results.items() if not r["ok"]]
+    torch.cuda.empty_cache()
+    sp_failures, sp_ranks = sp_path_phase(build_trainer, len(calls))
+    failures += sp_failures
+
     # the kernels line: main-path shapes in the main path's dtype (bf16)
     main_attn = next(r for r in attn_rows
                      if r["dtype"] == "bfloat16" and r["case"] == "ring off=0 t=8 F=64")
@@ -935,6 +1234,31 @@ def main(argv=None):
         f"{len(dart_step)} attention layers of one DART step (batch 8, T=8, bf16; "
         f"library: F.scaled_dot_product_attention on the same mask); launches: "
         f"rollout {rollout_flash}, training {tuple(train_flash)} (dart fwd/bwd, full fwd/bwd)")
+    # the SP kernels: one rank's calls over the 6 video layers of a DART step
+    # (sp=2, bf16, mean of the two ranks); launches over both ranks' steps
+    n_video_layers = sp_ranks[0]["gym"]["n_video"]
+    for which in ("fwd", "bwd"):
+        rs = [sp_results[("dart", "bfloat16", 2, r)] for r in range(2)]
+        errs = [v["max_abs_err"] for k, v in sp_results.items()
+                if k[0] == "dart" and k[3] != "stack"]
+
+        def per_step(key):
+            return n_video_layers * sum(r[key] for r in rs) / len(rs)
+
+        kernels.append(dict(
+            name=f"dart_attention_sp_{which}", route="cuda",
+            source=f"{PKG}/csrc/flash_attention_{which}.cu",
+            replaces="autoregressive_diffusion_tpu/ops/flash_attention.py:326",
+            launches=sum(c[f"dart_sp_{which}"] for res in sp_ranks for c in res["gym"]["counts"]),
+            max_abs_err=max(errs), ms=per_step(f"{which}_ms"),
+            plain_ms=per_step(f"plain_{which}_ms"), bound_ms=per_step(f"bound_{which}_ms"),
+            bound_by=rs[0][f"bound_{which}_by"], library_ms=per_step(f"library_{which}_ms"),
+            ok=all(v["ok"] for v in sp_results.values())))
+    log(f"# dart_attention_sp ms/plain_ms/bound_ms/library_ms are one rank's sums over the "
+        f"{n_video_layers} video layers of a DART step (sp=2, bf16, q (8, 4, 512, 64) against "
+        f"k/v (8, 4, 1024, 64), mean of the two ranks; library: F.scaled_dot_product_attention "
+        f"on the same rows and mask); launches: both ranks' four steps. The same entry points "
+        f"with the causal mask (flash_attention.py:336) were checked above")
     for k in kernels:
         if k["launches"] == 0:
             failures.append(f"{k['name']} never launched on the main path")
@@ -956,7 +1280,12 @@ def main(argv=None):
                       dw2_err_vs_float64=dict(kernel=dw_err_kernel, plain=dw_err_plain),
                       flash_attention=[dict(kind=k[0], shape=list(k[1]), dtype=k[2], **v)
                                        for k, v in flash_results.items()],
-                      train_grad_err=grad_err, train=train_summary)
+                      train_grad_err=grad_err, train=train_summary,
+                      sp_attention=[dict(kind=k[0], dtype=k[1], sp=k[2], rank=k[3], **v)
+                                    for k, v in sp_results.items()],
+                      sp_path=[dict(rank=r["rank"], small_losses=r["small"]["losses"],
+                                    **{k: v for k, v in r["gym"].items()})
+                               for r in sp_ranks])
         Path(args.out).write_text(json.dumps(detail, indent=1))
 
     log(f"# total {time.perf_counter() - t_start:.1f} s")

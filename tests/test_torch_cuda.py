@@ -8,11 +8,13 @@ test_torch_fused_conv.py and test_torch_flash_attention.py). On the card
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
+import numpy as np
 import pytest
 import torch
 
 from autoregressive_diffusion_tpu_torch.ops import flash_attention as fa
 from autoregressive_diffusion_tpu_torch.ops import fused_conv as fc
+from autoregressive_diffusion_tpu_torch.ops import masks
 from autoregressive_diffusion_tpu_torch.ops.numerics import mp_weight
 
 
@@ -320,3 +322,99 @@ def test_flash_attention_autograd_through_the_kernels(cuda):
             grads[dev] = [out.detach().cpu()] + [l.grad.cpu() for l in leaves]
         for a, w in zip(grads["cuda"], grads["cpu"]):
             assert float((a - w).abs().max()) <= flash_tol(w, qs.shape[2])
+
+
+# ---------------------------------------------------------------------------
+# sequence-parallel flash attention: the same kernels through their SP entry
+# points, one seq rank's query rows against the K/V gathered from all ranks
+
+SP_SHAPES = [  # kind, b, heads, n_frames, hw, d, sp
+    ("dart", 8, 4, 8, 64, 64, 2),     # gym video layer split over 2 ranks
+    ("causal", 8, 4, 16, 64, 64, 2),  # the same token count, frame-causal
+    ("dart", 1, 2, 4, 40, 32, 2),     # odd: key tiles straddle frames and halves
+    ("causal", 1, 2, 6, 40, 32, 3),
+]
+
+
+def gathered_to_clip(kind, n_frames, hw, s, sp):
+    """The clip's token index of each token of the rank-major gathered
+    layout: x_gathered = x_clip[:, :, index]."""
+    j = np.arange(s)
+    return torch.from_numpy(masks.shard_frame(j // hw, n_frames // sp, n_frames, kind) * hw
+                            + j % hw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SP_SHAPES)
+def test_sp_flash_kernels_match_plain(cuda, dtype, shape):
+    kind, b, heads, n_frames, hw, d, sp = shape
+    s = (2 if kind == "dart" else 1) * n_frames * hw
+    sq = s // sp
+    qs, k, v, do = flash_inputs(cuda, dtype, "full", b, heads, 1, s, d, seed=9)
+    counters = (f"{kind}_sp_fwd_launches", f"{kind}_sp_bwd_launches")
+    for r in range(sp):
+        q_r, do_r = (a[:, :, r * sq:(r + 1) * sq].contiguous() for a in (qs, do))
+        before = tuple(getattr(fa, c) for c in counters)
+        o, lse = fa.flash_attention_sp_fwd(q_r, k, v, kind, n_frames, hw, r)
+        o_p, lse_p = fa.flash_attention_sp_fwd_plain(q_r, k, v, kind, n_frames, hw, r)
+        got = fa.flash_attention_sp_bwd(q_r, k, v, o_p, lse_p, do_r, kind, n_frames, hw, r)
+        want = fa.flash_attention_sp_bwd_plain(q_r, k, v, o_p, lse_p, do_r, kind, n_frames, hw, r)
+        torch.cuda.synchronize()
+        assert tuple(getattr(fa, c) for c in counters) == tuple(x + 1 for x in before)
+        assert float((lse - lse_p).abs().max()) <= flash_tol(lse_p, s)
+        for name, a, w in [("o", o, o_p), ("dq", got[0], want[0]), ("dk", got[1], want[1]),
+                           ("dv", got[2], want[2])]:
+            assert a.shape == w.shape and a.dtype == w.dtype == dtype, name
+            assert bool(torch.isfinite(a).all()), name
+            if dtype == torch.float32:
+                assert float((a - w).abs().max()) <= flash_tol(w, s), name
+            else:
+                assert rel_err(a, w) <= 1e-2, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sp", [2, 4])
+def test_sp_shards_add_up_to_the_one_rank_kernel(cuda, dtype, sp):
+    """At the gym's DART shape: the shards' stacked o equals the one-rank
+    DART kernel's, their dq its rows, and their partial dk, dv summed over
+    the ranks its dk, dv -- all in the rank-major gathered token order."""
+    b, heads, n_frames, hw, d = 8, 4, 8, 64, 64
+    s = 2 * n_frames * hw
+    sq = s // sp
+    qs, k, v, do = flash_inputs(cuda, dtype, "dart", b, heads, n_frames, hw, d, seed=10)
+    o, lse = fa.flash_attention_fwd(qs, k, v, "dart", n_frames, hw)
+    grads = fa.flash_attention_bwd(qs, k, v, o, lse, do, "dart", n_frames, hw)
+    idx = gathered_to_clip("dart", n_frames, hw, s, sp).to(cuda)
+    qg, kg, vg, dog, og = (a[:, :, idx].contiguous() for a in (qs, k, v, do, o))
+    lseg = lse[:, :, idx].contiguous()
+    outs, dqs, dk, dv = [], [], 0.0, 0.0
+    for r in range(sp):
+        rows = slice(r * sq, (r + 1) * sq)
+        q_r, do_r, o_r, lse_r = (a[:, :, rows].contiguous() for a in (qg, dog, og, lseg))
+        outs.append(fa.flash_attention_sp_fwd(q_r, kg, vg, "dart", n_frames, hw, r)[0])
+        dq_r, dk_r, dv_r = fa.flash_attention_sp_bwd(q_r, kg, vg, o_r, lse_r, do_r, "dart",
+                                                     n_frames, hw, r)
+        dqs.append(dq_r)
+        dk, dv = dk + dk_r.float(), dv + dv_r.float()
+    torch.cuda.synchronize()
+    for name, got, want in [("o", torch.cat(outs, dim=2), og),
+                            ("dq", torch.cat(dqs, dim=2), grads[0][:, :, idx]),
+                            ("dk", dk, grads[1][:, :, idx]), ("dv", dv, grads[2][:, :, idx])]:
+        if dtype == torch.float32:
+            assert float((got.float() - want.float()).abs().max()) <= flash_tol(want, s), name
+        else:
+            assert rel_err(got, want) <= 1e-2, name
+
+
+@pytest.mark.cuda
+def test_sp_flash_attention_refuses_bad_shards(cuda):
+    qs, k, v, _ = flash_inputs(cuda, torch.float32, "dart", 1, 2, 4, 16, 32)
+    q_r = qs[:, :, :64].contiguous()
+    with pytest.raises(ValueError):  # rank 2 of 2
+        fa.flash_attention_sp_fwd(q_r, k, v, "dart", 4, 16, 2)
+    with pytest.raises(ValueError):  # n_frames is not sp * t_local
+        fa.flash_attention_sp_fwd(q_r, k, v, "dart", 3, 16, 0)
+    with pytest.raises(ValueError):  # full attention is per frame, never split
+        fa.flash_attention_sp_fwd(q_r, k, v, "full", 1, 64, 0)

@@ -32,6 +32,10 @@ def test_import_leaves_jax_out():
             "import autoregressive_diffusion_tpu_torch.train.train_state\n"
             "import autoregressive_diffusion_tpu_torch.utils.bridge\n"
             "import autoregressive_diffusion_tpu_torch.utils.profiling\n"
+            "import autoregressive_diffusion_tpu_torch.parallel\n"
+            "import autoregressive_diffusion_tpu_torch.parallel.collectives\n"
+            "import autoregressive_diffusion_tpu_torch.parallel.launch\n"
+            "import autoregressive_diffusion_tpu_torch.parallel.mesh\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
             "       or m == 'flax' or m.startswith('flax.') or m == 'optax'\n"
             "       or m.startswith('autoregressive_diffusion_tpu.')\n"
@@ -97,13 +101,15 @@ def test_cpu_tensors_take_the_plain_versions():
 
 
 def test_every_port_module_is_on_the_isolation_list():
-    """The subprocess test above imports the train package and its entry
-    point by name; the AST test walks every file. A new module is covered by
-    the walk at once, and this test keeps the walk honest about train/."""
+    """The subprocess test above imports the train and parallel packages
+    and the entry point by name; the AST test walks every file. A new module
+    is covered by the walk at once, and this test keeps the walk honest
+    about train/ and parallel/."""
     names = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
     for want in ("train/__init__.py", "train/__main__.py", "train/cli.py", "train/loss.py",
                  "train/loss_weight.py", "train/ema.py", "train/optim.py",
-                 "train/train_state.py", "utils/profiling.py"):
+                 "train/train_state.py", "utils/profiling.py", "parallel/__init__.py",
+                 "parallel/collectives.py", "parallel/launch.py", "parallel/mesh.py"):
         assert want in names, want
 
 
@@ -114,7 +120,8 @@ def test_train_entry_point_defaults_to_the_card(monkeypatch, capsys):
     def counts():
         return (fused_conv.conv_fwd_launches, fused_conv.conv_bwd_launches,
                 flash_attention.dart_fwd_launches, flash_attention.dart_bwd_launches,
-                flash_attention.full_fwd_launches, flash_attention.full_bwd_launches)
+                flash_attention.full_fwd_launches, flash_attention.full_bwd_launches,
+                flash_attention.dart_sp_fwd_launches, flash_attention.dart_sp_bwd_launches)
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -138,3 +145,13 @@ def test_train_mode_refuses_dropout():
     x = torch.zeros((1, 2, 16, 16, 4))
     with pytest.raises(NotImplementedError, match="dropout"):
         model(x, torch.ones((1, 2)), torch.zeros((1, 2), dtype=torch.long), mode="train")
+
+
+def test_parallel_run_needs_a_launcher(monkeypatch):
+    """--dp/--sp outside torchrun raises instead of running one rank alone."""
+    from autoregressive_diffusion_tpu_torch.train import cli
+
+    for var in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(RuntimeError, match="torchrun"):
+        cli.main(["--device", "cpu", "--config", "tiny", "--sp", "2", "--backend", "gloo"])
