@@ -20,30 +20,47 @@
 // What bounds it on the H100: at the gym shapes a DART layer (8 x 4 heads,
 // S = 1024, d = 64, 72 of 256 frame pairs visible) is 2.4 GFLOP on 16.8 MB,
 // a full frame layer (128 x 2 heads, S = 256) 4.3 GFLOP on 33.5 MB: both
-// are bound by bytes (5 and 10 us) on the bf16 tensor cores. With plain
-// fp32 FMAs fed from shared memory the kernel is bound instead by the
-// shared-memory loads behind each FMA.
+// are bound by bytes (5 and 10 us) on the bf16 tensor cores (989 TFLOP/s
+// dense, 3.35 TB/s).
 // What the design does about it: the (S, S) logits never reach device
 // memory; one block per (batch*head, 64-row query tile) walks the 64-token
 // K/V tiles and skips, from frame indices alone, every tile the mask rules
 // out, so a DART layer does 72/256 of the dense work (under sp = 2 rank
-// 0's 512 rows see 20 of their 128 tile pairs, rank 1's 52); inside a
-// visible tile the predicate is evaluated per token (hw need not be a
-// multiple of 64, and a tile of the rank-major gathered keys can straddle a
-// clean/noisy boundary), and the ragged tails of Sq and Sk are masked. The
-// sequence-parallel entry point runs instantiations with the frame map
-// (SHARD = true), the one-rank entry points instantiations without it, so
-// the map costs the one-rank kernels no registers. Tensor-core tiles
-// (mma.sync / wgmma) are later work.
+// 0's 512 rows see 20 of their 128 tile pairs, rank 1's 52); the predicate
+// is evaluated per token only in tiles the frame test passes in part (hw
+// need not be a multiple of 64, and a tile of the rank-major gathered keys
+// can straddle a clean/noisy boundary), and the ragged tails of Sq and Sk
+// are masked. The sequence-parallel entry point runs instantiations with
+// the frame map (SHARD = true), the one-rank entry points instantiations
+// without it, so the map costs the one-rank kernels no registers.
+//
+// bf16 (the model body's type, in training and serving), on the tensor
+// cores: one warpgroup of 128 threads per query tile. TMA brings the Q
+// tile once and streams the visible K/V tiles through a ring of NSTAGE
+// stages in shared memory (swizzled boxes, mbarrier completion), so the
+// next tile's copy overlaps this tile's products. S = Q K^T is a wgmma
+// m64n64k16 from shared memory; the mask and the online softmax run on the
+// fp32 accumulator fragments in registers (a row's max and sum within the
+// quad of lanes that hold it); P becomes bf16 A fragments in registers and
+// O += P V is a wgmma with V as an MN-major operand in shared memory. No
+// trip through shared memory for S or P. What bounds it now is the serial
+// chain of a block (product, softmax on the CUDA cores, product, barrier)
+// and the softmax's per-element work at d = 64; overlapping one tile's
+// softmax with the next tile's product (warp specialisation) is later work.
+// fp32 keeps the SIMT loops of fp32 FMAs: its callers (the small fp32
+// models, the fp32 comparisons) are held to 8 roundoff steps over S terms,
+// which no bf16 or TF32 tensor-core product meets. The type alone picks
+// the path.
 #include "flash_tile.cuh"
 
 namespace adflash {
 namespace {
 
-template <typename T, int D, bool SHARD>
+// fp32: SIMT, four lanes to a query row.
+template <int D, bool SHARD>
 __global__ void __launch_bounds__(NT)
-flash_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+flash_attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
                       int Sq, int Sk_sharded, Mask mk) {
   const int Sk = SHARD ? Sk_sharded : Sq;
   constexpr int LD = D + 1;
@@ -67,7 +84,7 @@ flash_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int gq = q0 + r;
   const int q_last = min(q0 + BQ, Sq) - 1;
 
-  load_tile<T, D>(sQ, q + qbase, q0, Sq);
+  load_tile<D>(sQ, q + qbase, q0, Sq);
 
   float acc[DPT];
 #pragma unroll
@@ -79,8 +96,8 @@ flash_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int k0 = t * BK;
     if (!tile_visible<SHARD>(mk, q0, q_last, k0, min(k0 + BK, Sk) - 1)) continue;
     __syncthreads();  // the previous tile's sK / sV / sP reads are done
-    load_tile<T, D>(sK, k + kbase, k0, Sk);
-    load_tile<T, D>(sV, v + kbase, k0, Sk);
+    load_tile<D>(sK, k + kbase, k0, Sk);
+    load_tile<D>(sV, v + kbase, k0, Sk);
     __syncthreads();
 
     float sc[KPT];
@@ -124,45 +141,195 @@ flash_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float inv = l > 0.f ? 1.f / l : 0.f;
 #pragma unroll
     for (int d = 0; d < DPT; ++d)
-      o[qbase + (size_t)gq * D + sub + 4 * d] = from_f<T>(acc[d] * inv);
+      o[qbase + (size_t)gq * D + sub + 4 * d] = acc[d] * inv;
     if (sub == 0) lse[(size_t)bh * Sq + gq] = l > 0.f ? m + logf(l) : -INFINITY;
   }
 }
 
-template <typename T, int D, bool SHARD>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int BH,
-                   int Sq, int Sk, Mask mk, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (size_t)((BQ + 2 * BK) * (D + 1) + BQ * (BK + 1));
-  static bool configured = false;
-  cudaError_t e = allow_smem(flash_attn_fwd_kernel<T, D, SHARD>, smem, configured);
-  if (e != cudaSuccess) return e;
-  const long long blocks = (long long)BH * ((Sq + BQ - 1) / BQ);
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  flash_attn_fwd_kernel<T, D, SHARD><<<(unsigned)blocks, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), lse, Sq, Sk, mk);
-  return cudaGetLastError();
-}
 
-template <typename T, bool SHARD>
-cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o, float* lse,
-                       int BH, int Sq, int Sk, int D, Mask mk, cudaStream_t s) {
-  switch (D) {
-    case 16: return launch<T, 16, SHARD>(q, k, v, o, lse, BH, Sq, Sk, mk, s);
-    case 32: return launch<T, 32, SHARD>(q, k, v, o, lse, BH, Sq, Sk, mk, s);
-    case 64: return launch<T, 64, SHARD>(q, k, v, o, lse, BH, Sq, Sk, mk, s);
-    case 128: return launch<T, 128, SHARD>(q, k, v, o, lse, BH, Sq, Sk, mk, s);
-    default: return cudaErrorInvalidValue;
+// bf16: tensor cores, one warpgroup to a 64-row query tile.
+template <int D, bool SHARD>
+__global__ void __launch_bounds__(TC_NT)
+flash_attn_fwd_tc(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
+                  float* __restrict__ lse, int Sq, int Sk_sharded, Mask mk) {
+  using TT = TcTile<D>;
+  const int Sk = SHARD ? Sk_sharded : Sq;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bar[NSTAGE + 1];  // the ring's stages, then Q
+  uint8_t* sQ = align_1k(smem_raw);
+  uint8_t* sKV = sQ + TT::BYTES;  // stage s: K at sKV + 2 s BYTES, V after it
+
+  const int n_qt = (Sq + BQ - 1) / BQ;
+  const int bh = blockIdx.x / n_qt;
+  const int q0 = (blockIdx.x % n_qt) * BQ;
+  const int q_last = min(q0 + BQ, Sq) - 1;
+  const int n_kt = (Sk + BK - 1) / BK;
+  const int tid = threadIdx.x;
+  auto next_visible = [&](int t) {
+    while (t < n_kt && !tile_visible<SHARD>(mk, q0, q_last, t * BK, min(t * BK + BK, Sk) - 1))
+      ++t;
+    return t;
+  };
+  auto load_stage = [&](int stage, int t) {
+    uint8_t* dst = sKV + 2 * stage * TT::BYTES;
+    sm90::mbar_arrive_expect_tx(&bar[stage], 2 * TT::BYTES);
+    tma_tile<D>(dst, &tk, &bar[stage], t * BK, bh);
+    tma_tile<D>(dst + TT::BYTES, &tv, &bar[stage], t * BK, bh);
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s <= NSTAGE; ++s) sm90::mbar_init(&bar[s], 1);
+    sm90::mbar_init_fence();
+  }
+  __syncthreads();  // the barriers
+  const int t_first = next_visible(0);
+  int t_next = t_first;  // the next tile to copy (thread 0 copies)
+  if (tid == 0) {
+    sm90::mbar_arrive_expect_tx(&bar[NSTAGE], TT::BYTES);
+    tma_tile<D>(sQ, &tq, &bar[NSTAGE], q0, bh);
+    for (int s = 0; s < NSTAGE && t_next < n_kt; ++s) {
+      load_stage(s, t_next);
+      t_next = next_visible(t_next + 1);
+    }
+  }
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float m2[2] = {-INFINITY, -INFINITY};  // running row max, log2 units
+  float l[2] = {0.f, 0.f};               // the thread's part of the row sum
+  const uint32_t dQ = TT::klo(sm90::smem_u32(sQ));
+  const uint32_t dK = TT::klo(sm90::smem_u32(sKV));
+  const uint32_t dV = TT::mnlo(sm90::smem_u32(sKV + TT::BYTES));
+  sm90::mbar_wait(&bar[NSTAGE], 0);
+
+  int it = 0;
+  for (int t = t_first; t < n_kt; t = next_visible(t + 1), ++it) {
+    const int stage = it % NSTAGE;
+    const uint32_t so = TT::tiles(2 * stage);
+    sm90::mbar_wait(&bar[stage], (it / NSTAGE) & 1);
+
+    float sc[32];
+    sm90::wgmma_fence();
+    gemm_abt<D>(sc, dQ, dK + so);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait_all();
+    sm90::fence_regs(sc);
+
+    const int k0 = t * BK;
+    if (!(k0 + BK <= Sk && tile_whole<SHARD>(mk, q0, q_last, k0, k0 + BK - 1))) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int gq = q0 + frag_row(i), gk = k0 + frag_col(i);
+        if (!(gk < Sk && gq < Sq && token_visible<SHARD>(mk, gq, gk))) sc[i] = -INFINITY;
+      }
+    }
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+    float alpha[2], base[2], psum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float m_new = fmaxf(m2[h], row_max(mx[h]) * LOG2E);
+      base[h] = m_new == -INFINITY ? 0.f : m_new;  // a row that sees nothing yet: p = 0
+      alpha[h] = ex2(m2[h] - base[h]);
+      m2[h] = m_new;
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int h = (i >> 1) & 1;
+      sc[i] = ex2(fmaf(sc[i], LOG2E, -base[h]));
+      psum[h] += sc[i];
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + psum[h];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+    uint32_t pa[16];
+    to_a_frags(sc, pa);
+
+    sm90::fence_regs(acc);
+    sm90::wgmma_fence();
+    gemm_pb<D>(acc, pa, dV + so);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait_all();
+    sm90::fence_regs(acc);
+
+    __syncthreads();  // every warp is done with this stage
+    if (tid == 0 && t_next < n_kt) {
+      load_stage(stage, t_next);
+      t_next = next_visible(t_next + 1);
+    }
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] = row_sum(l[h]);
+    inv[h] = l[h] > 0.f ? 1.f / l[h] : 0.f;
+  }
+  const size_t qbase = (size_t)bh * Sq;
+  store_rows<D>(o + qbase * D, acc, q0, Sq, inv);
+  if ((tid & 3) == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int g = q0 + frag_row(2 * h);
+      if (g < Sq) lse[qbase + g] = l[h] > 0.f ? (m2[h] + log2f(l[h])) * LN2 : -INFINITY;
+    }
   }
 }
 
+template <int D, bool SHARD>
+cudaError_t launch_simt(const void* q, const void* k, const void* v, void* o, float* lse, int BH,
+                        int Sq, int Sk, Mask mk, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * (size_t)((BQ + 2 * BK) * (D + 1) + BQ * (BK + 1));
+  static bool configured = false;
+  cudaError_t e = allow_smem(flash_attn_fwd_kernel<D, SHARD>, smem, configured);
+  if (e != cudaSuccess) return e;
+  const long long blocks = (long long)BH * ((Sq + BQ - 1) / BQ);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  flash_attn_fwd_kernel<D, SHARD><<<(unsigned)blocks, NT, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), lse, Sq, Sk, mk);
+  return cudaGetLastError();
+}
+
+template <int D, bool SHARD>
+cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o, float* lse, int BH,
+                      int Sq, int Sk, Mask mk, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  if (!tile_map<D>(&tq, q, Sq, BH) || !tile_map<D>(&tk, k, Sk, BH) ||
+      !tile_map<D>(&tv, v, Sk, BH))
+    return cudaErrorInvalidValue;
+  const size_t smem = 1024 + (size_t)(1 + 2 * NSTAGE) * TcTile<D>::BYTES;
+  static bool configured = false;
+  cudaError_t e = allow_smem(flash_attn_fwd_tc<D, SHARD>, smem, configured);
+  if (e != cudaSuccess) return e;
+  const long long blocks = (long long)BH * ((Sq + BQ - 1) / BQ);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  flash_attn_fwd_tc<D, SHARD><<<(unsigned)blocks, TC_NT, smem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, Sq, Sk, mk);
+  return cudaGetLastError();
+}
+
+// fp32 to the SIMT kernel, bf16 to the tensor-core kernel, by type alone.
 template <bool SHARD>
 cudaError_t dispatch_t(const void* q, const void* k, const void* v, void* o, float* lse,
                        int BH, int Sq, int Sk, int D, Mask mk, int dtype, cudaStream_t s) {
-  if (dtype == 0) return dispatch_d<float, SHARD>(q, k, v, o, lse, BH, Sq, Sk, D, mk, s);
-  if (dtype == 1)
-    return dispatch_d<__nv_bfloat16, SHARD>(q, k, v, o, lse, BH, Sq, Sk, D, mk, s);
-  return cudaErrorInvalidValue;
+#define AD_CASE(DD)                                                                   \
+  case DD:                                                                            \
+    return dtype == 0 ? launch_simt<DD, SHARD>(q, k, v, o, lse, BH, Sq, Sk, mk, s)  \
+                      : launch_tc<DD, SHARD>(q, k, v, o, lse, BH, Sq, Sk, mk, s);
+  if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
+  switch (D) {
+    AD_CASE(16)
+    AD_CASE(32)
+    AD_CASE(64)
+    AD_CASE(128)
+    default: return cudaErrorInvalidValue;
+  }
+#undef AD_CASE
 }
 
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, void* lse,

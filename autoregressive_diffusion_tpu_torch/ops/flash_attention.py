@@ -35,7 +35,9 @@ sp_flash_supported, as in the JAX package.
 All take q pre-scaled by 1/sqrt(d) and cast to the input type (the public
 functions scale it, outside the Function, so autograd carries the scale
 into dq), compute logits and the softmax in fp32 and write their results
-in the input type.
+in the input type. The training kernels run fp32 on the CUDA cores and
+bf16 on the tensor cores, where P (and in the backward dS) is rounded to
+bf16 before it multiplies V (dO, Q, K), as the bf16 operands require.
 
 On CUDA tensors a wrapper launches its kernel or raises; the plain versions
 run only for CPU tensors (and in chip_smoke.py, as the yardstick the
@@ -274,6 +276,9 @@ def _flash_args(kind, n_frames, hw, sp_rank, rows, keys):
                                  f"{shape} {qs.dtype}")
             if not t.is_contiguous():
                 raise ValueError("flash attention: tensors must be contiguous")
+            if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
+                raise ValueError("flash attention: bf16 tensors must start on a 16-byte "
+                                 "boundary (the kernels read them by TMA)")
     return b, h, sq, sk, d
 
 

@@ -14,11 +14,19 @@ Phases, each of which fails the run with a non-zero exit:
      offset 60, t_new=8 -- in fp32 and bf16, with times of the kernel, the
      plain version and F.scaled_dot_product_attention on the same mask;
   2b. the DART and full flash-attention kernels, forward and backward,
-     against their plain versions (o, lse, dq, dk, dv) in fp32 and bf16 at
-     every attention shape of the gym model's DART and just_2d training
-     steps (batch 8, T=8) and at one odd shape (T=3, hw=40, d=32, batch 1),
-     with times of the kernels, the plain versions and
-     F.scaled_dot_product_attention on the same mask, forward and backward;
+     against their plain versions (o, lse, dq, dk, dv) in fp32 (SIMT
+     kernels) and bf16 (tensor-core kernels) at every attention shape of
+     the gym model's DART and just_2d training steps (batch 8, T=8), at the
+     rollout's frame-attention shapes (b*t = 1 and 8 frames) and at odd
+     shapes (T=3, hw=40, d=32, batch 1), with times of the kernels, the
+     plain versions and F.scaled_dot_product_attention on the same mask
+     (for the full kind also with no mask), forward and backward; kernel
+     and SDPA times are device times (device_ms: the calls queued behind a
+     sleeping kernel, so the host's launch cost is not counted), the wall
+     time a call beside them. The build's registers and spill bytes of
+     every flash-kernel instantiation are printed first, and the wgmma and
+     TMA-load instructions in the machine code of each tensor-core kernel
+     (cuobjdump; a kernel with none fails the run);
   3. the fused decode-Block kernel against its plain version for every
      attention-free Block shape of the gym model, fp32 and bf16, with times;
   4. end to end against the plain versions: a small model and the
@@ -68,6 +76,8 @@ no CUDA device is present or the port's package is not beside it.
 """
 import argparse
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -112,6 +122,83 @@ def time_ms(fn, iters=30, warmup=3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters=30, warmup=3) -> float:
+    """Device time of a call: the timed calls are queued behind a sleeping
+    kernel, so the host's cost of launching them (Python, ctypes, tensor
+    maps) overlaps the sleep and the events see the kernels back to back.
+    The sleep doubles until it outlasts the queueing. fn must not
+    synchronise (no host-device copies)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    cycles = 5_000_000
+    for _ in range(8):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        queued = not start.query()  # the card was still asleep when the last call was queued
+        torch.cuda.synchronize()
+        if queued:
+            return start.elapsed_time(end) / iters
+        cycles *= 2
+    raise RuntimeError("device_ms: the sleep never outlasted the queueing")
+
+
+def ptxas_report(text):
+    """[(kernel, registers, spill store bytes, spill load bytes)] of every
+    entry function in nvcc's -Xptxas -v output, names demangled where
+    c++filt is on the PATH."""
+    rows, fn, spill = [], None, (0, 0)
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)'?", line)
+        if m:
+            fn = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            rows.append([fn, int(m.group(1)), *spill])
+            fn, spill = None, (0, 0)
+    for r, name in zip(rows, demangle([r[0] for r in rows])):
+        r[0] = name
+    return [tuple(r) for r in rows]
+
+
+def demangle(names):
+    """Kernel names without namespaces and arguments, by c++filt where it is
+    on the PATH (else as they are)."""
+    if not names or not shutil.which("c++filt"):
+        return names
+    out = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True, text=True,
+                         timeout=60).stdout.splitlines()
+    if len(out) != len(names):
+        return names
+    return [re.sub(r"\(.*", "", n.replace("(anonymous namespace)::", "").removeprefix("void "))
+            for n in out]
+
+
+def sass_counts(lib, part="_tc"):
+    """{kernel: (HGMMA, UTMALDG)}: the wgmma and TMA-load instructions in
+    the machine code (cuobjdump -sass) of every kernel of a built library
+    whose mangled name holds `part`; None without cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return None
+    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True, timeout=600).stdout
+    found = {}
+    for fn in re.split(r"\n(?=\s*Function : )", text):
+        m = re.search(r"Function : (\S+)", fn)
+        if m and part in m.group(1):
+            found[m.group(1)] = (fn.count("HGMMA."), fn.count("UTMALDG"))
+    return dict(zip(demangle(list(found)), found.values()))
 
 
 def bound(flops, nbytes, dtype):
@@ -235,11 +322,24 @@ def flash_tol(want, s):
     return 8 * EPS32 * s ** 0.5 * max(1.0, float(want.abs().max()))
 
 
+def serving_calls(cfg, frames=(1, 8)):
+    """[(kind, batch, heads, n_frames, hw, d)] of the flash-attention calls
+    of the rollout's frame layers at batch 1: full attention per frame over
+    b*t = 1 frame (a cached denoiser call) and 8 frames (the prefill)."""
+    out = set()
+    for _, _, spec in cfg.block_layout():
+        heads = cfg.num_heads(spec)
+        if heads and spec["attention"] == "frame":
+            hw, d = spec["res"] ** 2, spec["cout"] // heads
+            out.update(("full", bt, heads, 1, hw, d) for bt in frames)
+    return sorted(out)
+
+
 def flash_phase(fa, masks, F, cfg, b=8, t=8):
     dev = torch.device(DEV)
     gym = sorted(set(attention_calls(cfg, b, t, False) + attention_calls(cfg, b, t, True)))
-    cases = [("gym", c) for c in gym] + [("odd", ("dart", 1, 2, 3, 40, 32)),
-                                         ("odd", ("full", 3, 2, 1, 40, 32))]
+    cases = ([("gym", c) for c in gym] + [("serve", c) for c in serving_calls(cfg)]
+             + [("odd", ("dart", 1, 2, 3, 40, 32)), ("odd", ("full", 3, 2, 1, 40, 32))])
     results = {}
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
@@ -271,38 +371,53 @@ def flash_phase(fa, masks, F, cfg, b=8, t=8):
                 ok = ok and err <= tol and bool(torch.isfinite(got).all())
             mask = fa._token_mask(kind, n_frames, hw, s, dev)
             leaves = [a.detach().requires_grad_(True) for a in (qs, k, v)]
+            # SDPA on the kernel's mask; for the full kind also with no mask
+            # (the same function), and the faster of the two is the yardstick
+            lib_masks = {"mask": mask, "none": None} if kind == "full" else {"mask": mask}
+            lib = {}
+            for name, am in lib_masks.items():
 
-            def sdpa():
-                return F.scaled_dot_product_attention(*leaves, attn_mask=mask, scale=1.0)
+                def sdpa(am=am):
+                    return F.scaled_dot_product_attention(*leaves, attn_mask=am, scale=1.0)
 
-            def sdpa_fb():
-                sdpa().backward(do)
+                def sdpa_fb():
+                    sdpa().backward(do)
 
-            ms_f = time_ms(lambda: fa.flash_attention_fwd(qs, k, v, kind, n_frames, hw))
-            ms_b = time_ms(lambda: fa.flash_attention_bwd(qs, k, v, o, lse, do, kind,
-                                                          n_frames, hw))
+                with torch.no_grad():
+                    lib_f = device_ms(sdpa)
+                lib_fb = device_ms(sdpa_fb)
+                lib[name] = (lib_f, max(lib_fb - lib_f, 0.0))
+
+            def fwd():
+                return fa.flash_attention_fwd(qs, k, v, kind, n_frames, hw)
+
+            def bwd():
+                return fa.flash_attention_bwd(qs, k, v, o, lse, do, kind, n_frames, hw)
+
+            ms_f, ms_b = device_ms(fwd), device_ms(bwd)
+            wall_f, wall_b = time_ms(fwd), time_ms(bwd)
             plain_f = time_ms(lambda: fa.flash_attention_fwd_plain(qs, k, v, kind, n_frames, hw),
                               10, 1)
             plain_b = time_ms(lambda: fa.flash_attention_bwd_plain(qs, k, v, o, lse, do, kind,
                                                                    n_frames, hw), 10, 1)
-            with torch.no_grad():
-                lib_f = time_ms(sdpa)
-            lib_fb = time_ms(sdpa_fb)
             (ff, fb), (bf, bb_) = flash_cost(kind, bb, heads, n_frames, hw, d, dtype, masks)
             bound_f, by_f = bound(ff, fb, dtype)
             bound_b, by_b = bound(bf, bb_, dtype)
             key = (label, shape, dname)
             results[key] = dict(ok=bool(ok), max_abs_err=worst, errs=errs, fwd_ms=ms_f,
-                                bwd_ms=ms_b, plain_fwd_ms=plain_f, plain_bwd_ms=plain_b,
-                                library_fwd_ms=lib_f, library_bwd_ms=max(lib_fb - lib_f, 0.0),
+                                bwd_ms=ms_b, wall_fwd_ms=wall_f, wall_bwd_ms=wall_b,
+                                plain_fwd_ms=plain_f, plain_bwd_ms=plain_b,
+                                library_fwd_ms=min(v[0] for v in lib.values()),
+                                library_bwd_ms=min(v[1] for v in lib.values()),
+                                library_by_mask={n: list(v) for n, v in lib.items()},
                                 bound_fwd_ms=bound_f, bound_bwd_ms=bound_b,
                                 bound_fwd_by=by_f, bound_bwd_by=by_b)
-            r = results[key]
             detail = " ".join(f"{n}={e:.2e}/{tl:.1e}" for n, (e, tl) in errs.items())
+            sdpa_txt = " ".join(f"sdpa[{n}]={f_:.4f}+{b_:.4f}" for n, (f_, b_) in lib.items())
             log(f"# flash {dname:8s} {label} {kind} b={bb} h={heads} S={s} hw={hw} d={d} "
-                f"ok={ok} {detail} | ms fwd={ms_f:.4f} bwd={ms_b:.4f} "
-                f"plain={plain_f:.4f}+{plain_b:.4f} sdpa={lib_f:.4f}+{r['library_bwd_ms']:.4f} "
-                f"bound={bound_f:.5f}+{bound_b:.5f} ({by_f}, {by_b})")
+                f"ok={ok} {detail} | device ms fwd={ms_f:.4f} bwd={ms_b:.4f} {sdpa_txt} "
+                f"| wall ms fwd={wall_f:.4f} bwd={wall_b:.4f} plain={plain_f:.4f}+{plain_b:.4f} "
+                f"| bound={bound_f:.5f}+{bound_b:.5f} ({by_f}, {by_b})")
     return results
 
 
@@ -794,7 +909,8 @@ def sp_kernel_phase(fa, masks, F, b=8, heads=4, hw=64, d=64):
     the ranks' stacked o and dq and summed dk, dv against the one-rank
     kernels (DART: row 4; causal: the prefill kernel's o, row 5, and the
     plain backward); times of each rank's call, its plain version and
-    F.scaled_dot_product_attention on the same rows and mask."""
+    F.scaled_dot_product_attention on the same rows and mask (kernel and
+    SDPA: device times)."""
     dev = torch.device(DEV)
     results = {}
     for kind, n_frames in (("dart", 8), ("causal", 16)):
@@ -853,16 +969,16 @@ def sp_kernel_phase(fa, masks, F, b=8, heads=4, hw=64, d=64):
                     def sdpa_fb():
                         sdpa().backward(do_r)
 
-                    ms_f = time_ms(lambda: fa.flash_attention_sp_fwd(q_r, kg, vg, *args))
-                    ms_b = time_ms(lambda: fa.flash_attention_sp_bwd(q_r, kg, vg, o_in, lse_in,
-                                                                     do_r, *args))
+                    ms_f = device_ms(lambda: fa.flash_attention_sp_fwd(q_r, kg, vg, *args))
+                    ms_b = device_ms(lambda: fa.flash_attention_sp_bwd(q_r, kg, vg, o_in, lse_in,
+                                                                       do_r, *args))
                     plain_f = time_ms(lambda: fa.flash_attention_sp_fwd_plain(q_r, kg, vg, *args),
                                       10, 1)
                     plain_b = time_ms(lambda: fa.flash_attention_sp_bwd_plain(
                         q_r, kg, vg, o_in, lse_in, do_r, *args), 10, 1)
                     with torch.no_grad():
-                        lib_f = time_ms(sdpa)
-                    lib_fb = time_ms(sdpa_fb)
+                        lib_f = device_ms(sdpa)
+                    lib_fb = device_ms(sdpa_fb)
                     (ff, fb), (bf, bb) = sp_cost(fa, kind, b, heads, n_frames, hw, d, sp, r, dtype)
                     bound_f, by_f = bound(ff, fb, dtype)
                     bound_b, by_b = bound(bf, bb, dtype)
@@ -1067,12 +1183,30 @@ def main(argv=None):
     t0 = time.perf_counter()
     logs = _build.build_all()
     log(f"# build: {time.perf_counter() - t0:.1f} s for {sorted(logs) or 'cached'}")
+    ptxas = {}
     for name, text in logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"# ptxas {name}: {line.strip()}")
+        ptxas[name] = ptxas_report(text)
+        for fn, regs, st, ld in ptxas[name]:
+            if name.startswith("flash_attention"):
+                log(f"# ptxas {name}: {fn}: {regs} registers, spill stores {st} B, "
+                    f"spill loads {ld} B")
+        if not name.startswith("flash_attention"):
+            worst = max(ptxas[name], key=lambda r: r[1], default=None)
+            if worst:
+                log(f"# ptxas {name}: {len(ptxas[name])} kernels, at most {worst[1]} "
+                    f"registers ({worst[0]}), spills {sum(r[2] + r[3] for r in ptxas[name])} B")
 
     failures = []
+    sass = {}
+    for name in ("flash_attention_fwd", "flash_attention_bwd"):
+        sass[name] = sass_counts(_build._lib_path(name))
+        if sass[name] is None:
+            log(f"# sass {name}: cuobjdump not found, instructions not counted")
+            continue
+        for fn, (n_mma, n_tma) in sass[name].items():
+            log(f"# sass {name}: {fn}: {n_mma} wgmma (HGMMA), {n_tma} TMA loads (UTMALDG)")
+            if not (n_mma and n_tma):
+                failures.append(f"{fn}: no wgmma or no TMA load in its machine code")
     attn_rows = attention_phase(fa, masks, F)
     failures += [f"attention {r['dtype']} {r['case']}" for r in attn_rows if not r["ok"]]
 
@@ -1231,8 +1365,9 @@ def main(argv=None):
                 library_ms=sum(r[f"library_{which}_ms"] for r in rs),
                 ok=all(r["ok"] for r in flash_results.values())))
     log(f"# dart/full_attention ms/plain_ms/bound_ms/library_ms are sums over the "
-        f"{len(dart_step)} attention layers of one DART step (batch 8, T=8, bf16; "
-        f"library: F.scaled_dot_product_attention on the same mask); launches: "
+        f"{len(dart_step)} attention layers of one DART step (batch 8, T=8, bf16; ms and "
+        f"library_ms are device times; library: F.scaled_dot_product_attention on the same "
+        f"mask, for full the faster of the mask and no mask); launches: "
         f"rollout {rollout_flash}, training {tuple(train_flash)} (dart fwd/bwd, full fwd/bwd)")
     # the SP kernels: one rank's calls over the 6 video layers of a DART step
     # (sp=2, bf16, mean of the two ranks); launches over both ranks' steps
@@ -1256,8 +1391,9 @@ def main(argv=None):
             ok=all(v["ok"] for v in sp_results.values())))
     log(f"# dart_attention_sp ms/plain_ms/bound_ms/library_ms are one rank's sums over the "
         f"{n_video_layers} video layers of a DART step (sp=2, bf16, q (8, 4, 512, 64) against "
-        f"k/v (8, 4, 1024, 64), mean of the two ranks; library: F.scaled_dot_product_attention "
-        f"on the same rows and mask); launches: both ranks' four steps. The same entry points "
+        f"k/v (8, 4, 1024, 64), mean of the two ranks; ms and library_ms are device times; "
+        f"library: F.scaled_dot_product_attention on the same rows and mask); launches: both "
+        f"ranks' four steps. The same entry points "
         f"with the causal mask (flash_attention.py:336) were checked above")
     for k in kernels:
         if k["launches"] == 0:
@@ -1267,7 +1403,7 @@ def main(argv=None):
 
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-        detail = dict(card=smi, kind=kind, attention=attn_rows,
+        detail = dict(card=smi, kind=kind, attention=attn_rows, ptxas=ptxas, sass=sass,
                       decode_block=[dict(shape=list(k[0]), dtype=k[1], with_ctx=k[2], **v)
                                     for k, v in block_results.items()],
                       e2e_full=e2e_full, rollout={k: v for k, v in out.items()

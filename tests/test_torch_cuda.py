@@ -207,10 +207,16 @@ FLASH_SHAPES = [  # kind, b, heads, n_frames, hw, d  (full: S = hw)
     ("dart", 8, 4, 8, 64, 64),     # gym video layer, S = 1024
     ("full", 128, 2, 1, 256, 64),  # gym frame layer
     ("full", 64, 4, 1, 64, 64),    # gym just_2d video layer
+    ("full", 1, 2, 1, 256, 64),    # serving frame layer, one frame: B*H = 2 at S = 256
+    ("full", 8, 2, 1, 256, 64),    # serving prefill of 8 frames
     ("dart", 1, 2, 3, 40, 32),     # odd: hw not a multiple of the tile
+    ("dart", 1, 2, 2, 40, 64),     # tiles straddle frames and the clean/noisy halves
     ("full", 3, 2, 1, 40, 32),
     ("dart", 2, 2, 2, 16, 16),
     ("dart", 1, 1, 2, 48, 128),
+    ("full", 2, 2, 1, 100, 128),   # ragged S: one whole tile and 36 rows
+    ("full", 2, 3, 1, 72, 16),     # ragged S, d = 16
+    ("full", 1, 2, 1, 200, 32),
 ]
 
 
@@ -256,6 +262,32 @@ def test_flash_kernels_match_plain(cuda, dtype, shape):
             assert float((a - w).abs().max()) <= flash_tol(w, s), name
         else:
             assert rel_err(a, w) <= 1e-2, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sp_rank", [None, 1])
+def test_flash_bf16_kernels_repeat_bit_for_bit(cuda, sp_rank):
+    """The bf16 tensor-core kernels, run twice on the same inputs, give the
+    same bits: no atomics and no sum whose order depends on scheduling."""
+    n_frames, hw = 8, 64
+    qs, k, v, do = flash_inputs(cuda, torch.bfloat16, "dart", 4, 2, n_frames, hw, 64, seed=11)
+    if sp_rank is None:
+        def run():
+            o, lse = fa.flash_attention_fwd(qs, k, v, "dart", n_frames, hw)
+            return (o, lse) + fa.flash_attention_bwd(qs, k, v, o, lse, do, "dart", n_frames, hw)
+    else:
+        sq = qs.shape[2] // 2
+        q_r, do_r = (a[:, :, sp_rank * sq:(sp_rank + 1) * sq].contiguous() for a in (qs, do))
+
+        def run():
+            o, lse = fa.flash_attention_sp_fwd(q_r, k, v, "dart", n_frames, hw, sp_rank)
+            return (o, lse) + fa.flash_attention_sp_bwd(q_r, k, v, o, lse, do_r, "dart",
+                                                         n_frames, hw, sp_rank)
+    first = [t.clone() for t in run()]
+    second = run()
+    torch.cuda.synchronize()
+    for name, a, b in zip(("o", "lse", "dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.cuda
@@ -331,8 +363,13 @@ def test_flash_attention_autograd_through_the_kernels(cuda):
 SP_SHAPES = [  # kind, b, heads, n_frames, hw, d, sp
     ("dart", 8, 4, 8, 64, 64, 2),     # gym video layer split over 2 ranks
     ("causal", 8, 4, 16, 64, 64, 2),  # the same token count, frame-causal
+    ("dart", 2, 2, 8, 64, 64, 4),     # ... over 4 ranks
+    ("causal", 2, 2, 16, 64, 64, 4),
     ("dart", 1, 2, 4, 40, 32, 2),     # odd: key tiles straddle frames and halves
     ("causal", 1, 2, 6, 40, 32, 3),
+    ("causal", 1, 2, 8, 40, 32, 4),
+    ("dart", 1, 2, 4, 24, 16, 4),
+    ("dart", 1, 1, 4, 48, 128, 2),
 ]
 
 
