@@ -1,5 +1,5 @@
-// Flash-attention forward under a frame mask (DART, full or frame-causal),
-// for sm_90a.
+// Flash-attention forward under a frame mask (DART, full or frame-causal)
+// or the ring-cache prefill mask, for sm_90a.
 //
 // Replaces the forward of the JAX package's splash-attention kernels
 //   autoregressive_diffusion_tpu/ops/flash_attention.py::dart_attention
@@ -51,7 +51,23 @@
 // models, the fp32 comparisons) are held to 8 roundoff steps over S terms,
 // which no bf16 or TF32 tensor-core product meets. The type alone picks
 // the path.
+//
+// The ring-cache prefill (entry point ad_flash_attention_ring_fwd, bf16
+// only) replaces ::prefill_cache_attention (:201, PrefillMask :96-138) and,
+// with offset 0 and f_total = t_new, ::causal_frame_attention (:184): the
+// same tensor-core kernel under RingMask (csrc/flash_tile.cuh), t_new * hw
+// query rows against the ring's f_total * hw keys, no lse. At the rollout's
+// shapes it is 0.15 GFLOP on about 1 MB, far under a microsecond of bytes,
+// with only 8-32 query tiles: the bound is the serial walk over a tile's
+// key tiles (up to 64 in a wrapped ring). So a query tile's visible key
+// tiles are found in O(1) (ring_tiles, no scan) and split over a cluster
+// of up to 8 blocks, whose leader merges the partial (m, l, o) from
+// distributed shared memory in rank order; the ring streams 4 stages.
+#include <cooperative_groups.h>
+
 #include "flash_tile.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace adflash {
 namespace {
@@ -147,29 +163,44 @@ flash_attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 
-// bf16: tensor cores, one warpgroup to a 64-row query tile.
-template <int D, bool SHARD>
+// bf16: tensor cores, one warpgroup to a 64-row query tile. M is Mask
+// (DART, full, causal; SHARD: sequence parallel) or RingMask (the ring-cache
+// prefill: Sq != Sk, no lse).
+template <int D, bool SHARD, class M = Mask>
 __global__ void __launch_bounds__(TC_NT)
 flash_attn_fwd_tc(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                   const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
-                  float* __restrict__ lse, int Sq, int Sk_sharded, Mask mk) {
+                  float* __restrict__ lse, int Sq, int Sk_sharded, M mk) {
   using TT = TcTile<D>;
-  const int Sk = SHARD ? Sk_sharded : Sq;
+  constexpr bool RING = std::is_same<M, RingMask>::value;
+  constexpr int NS = RING ? RING_NSTAGE : NSTAGE;
+  const int Sk = (SHARD || RING) ? Sk_sharded : Sq;
   extern __shared__ uint8_t smem_raw[];
-  __shared__ __align__(8) uint64_t bar[NSTAGE + 1];  // the ring's stages, then Q
+  __shared__ __align__(8) uint64_t bar[NS + 1];  // the ring's stages, then Q
   uint8_t* sQ = align_1k(smem_raw);
   uint8_t* sKV = sQ + TT::BYTES;  // stage s: K at sKV + 2 s BYTES, V after it
 
   const int n_qt = (Sq + BQ - 1) / BQ;
-  const int bh = blockIdx.x / n_qt;
-  const int q0 = (blockIdx.x % n_qt) * BQ;
+  int tile_id = blockIdx.x, rank = 0;  // RING: clusters of mk.split blocks share a query tile
+  if constexpr (RING) {
+    tile_id = blockIdx.x / mk.split;
+    rank = blockIdx.x - tile_id * mk.split;
+  }
+  const int bh = tile_id / n_qt;
+  const int q0 = (tile_id % n_qt) * BQ;
   const int q_last = min(q0 + BQ, Sq) - 1;
   const int n_kt = (Sk + BK - 1) / BK;
   const int tid = threadIdx.x;
+  int lo1 = 0, hi1 = -1, lo2 = 0, hi2 = -1;  // RING: the block's key tiles
+  if constexpr (RING) ring_tiles(mk, q_last, rank, lo1, hi1, lo2, hi2);
   auto next_visible = [&](int t) {
-    while (t < n_kt && !tile_visible<SHARD>(mk, q0, q_last, t * BK, min(t * BK + BK, Sk) - 1))
-      ++t;
-    return t;
+    if constexpr (RING) {
+      return t <= hi1 ? max(t, lo1) : t <= hi2 ? max(t, lo2) : n_kt;
+    } else {
+      while (t < n_kt && !tile_visible<SHARD>(mk, q0, q_last, t * BK, min(t * BK + BK, Sk) - 1))
+        ++t;
+      return t;
+    }
   };
   auto load_stage = [&](int stage, int t) {
     uint8_t* dst = sKV + 2 * stage * TT::BYTES;
@@ -179,16 +210,16 @@ flash_attn_fwd_tc(const __grid_constant__ CUtensorMap tq, const __grid_constant_
   };
 
   if (tid == 0) {
-    for (int s = 0; s <= NSTAGE; ++s) sm90::mbar_init(&bar[s], 1);
+    for (int s = 0; s <= NS; ++s) sm90::mbar_init(&bar[s], 1);
     sm90::mbar_init_fence();
   }
   __syncthreads();  // the barriers
   const int t_first = next_visible(0);
   int t_next = t_first;  // the next tile to copy (thread 0 copies)
   if (tid == 0) {
-    sm90::mbar_arrive_expect_tx(&bar[NSTAGE], TT::BYTES);
-    tma_tile<D>(sQ, &tq, &bar[NSTAGE], q0, bh);
-    for (int s = 0; s < NSTAGE && t_next < n_kt; ++s) {
+    sm90::mbar_arrive_expect_tx(&bar[NS], TT::BYTES);
+    tma_tile<D>(sQ, &tq, &bar[NS], q0, bh);
+    for (int s = 0; s < NS && t_next < n_kt; ++s) {
       load_stage(s, t_next);
       t_next = next_visible(t_next + 1);
     }
@@ -202,13 +233,13 @@ flash_attn_fwd_tc(const __grid_constant__ CUtensorMap tq, const __grid_constant_
   const uint32_t dQ = TT::klo(sm90::smem_u32(sQ));
   const uint32_t dK = TT::klo(sm90::smem_u32(sKV));
   const uint32_t dV = TT::mnlo(sm90::smem_u32(sKV + TT::BYTES));
-  sm90::mbar_wait(&bar[NSTAGE], 0);
+  sm90::mbar_wait(&bar[NS], 0);
 
   int it = 0;
   for (int t = t_first; t < n_kt; t = next_visible(t + 1), ++it) {
-    const int stage = it % NSTAGE;
+    const int stage = it % NS;
     const uint32_t so = TT::tiles(2 * stage);
-    sm90::mbar_wait(&bar[stage], (it / NSTAGE) & 1);
+    sm90::mbar_wait(&bar[stage], (it / NS) & 1);
 
     float sc[32];
     sm90::wgmma_fence();
@@ -263,6 +294,46 @@ flash_attn_fwd_tc(const __grid_constant__ CUtensorMap tq, const __grid_constant_
     }
   }
 
+  if constexpr (RING) {
+    if (mk.split > 1) {
+      // The leader merges its partners' (m, l, o) in rank order; each
+      // thread holds the same rows and columns in every block.
+      cg::cluster_group cluster = cg::this_cluster();
+      float* part = reinterpret_cast<float*>(sKV);  // [D / 2 + 4][TC_NT]
+      __syncthreads();  // no warp reads the ring any more
+      if (rank != 0) {
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) part[i * TC_NT + tid] = acc[i];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          part[(D / 2 + h) * TC_NT + tid] = m2[h];
+          part[(D / 2 + 2 + h) * TC_NT + tid] = l[h];
+        }
+      }
+      cluster.sync();
+      if (rank == 0) {
+        for (int r = 1; r < mk.split; ++r) {
+          const float* rp = cluster.map_shared_rank(part, r);
+          float a[2], b[2];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float mr = rp[(D / 2 + h) * TC_NT + tid];
+            const float m_new = fmaxf(m2[h], mr);
+            const float base = m_new == -INFINITY ? 0.f : m_new;
+            a[h] = ex2(m2[h] - base);
+            b[h] = ex2(mr - base);
+            l[h] = l[h] * a[h] + rp[(D / 2 + 2 + h) * TC_NT + tid] * b[h];
+            m2[h] = m_new;
+          }
+#pragma unroll
+          for (int i = 0; i < D / 2; ++i)
+            acc[i] = acc[i] * a[(i >> 1) & 1] + rp[i * TC_NT + tid] * b[(i >> 1) & 1];
+        }
+      }
+      cluster.sync();  // the partners' shared memory stays until the leader has read it
+      if (rank != 0) return;
+    }
+  }
   float inv[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -271,6 +342,7 @@ flash_attn_fwd_tc(const __grid_constant__ CUtensorMap tq, const __grid_constant_
   }
   const size_t qbase = (size_t)bh * Sq;
   store_rows<D>(o + qbase * D, acc, q0, Sq, inv);
+  if constexpr (RING) return;
   if ((tid & 3) == 0) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -295,21 +367,42 @@ cudaError_t launch_simt(const void* q, const void* k, const void* v, void* o, fl
   return cudaGetLastError();
 }
 
-template <int D, bool SHARD>
+template <int D, bool SHARD, class M = Mask>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o, float* lse, int BH,
-                      int Sq, int Sk, Mask mk, cudaStream_t stream) {
+                      int Sq, int Sk, M mk, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   if (!tile_map<D>(&tq, q, Sq, BH) || !tile_map<D>(&tk, k, Sk, BH) ||
       !tile_map<D>(&tv, v, Sk, BH))
     return cudaErrorInvalidValue;
-  const size_t smem = 1024 + (size_t)(1 + 2 * NSTAGE) * TcTile<D>::BYTES;
+  constexpr bool RING = std::is_same<M, RingMask>::value;
+  const size_t smem =
+      1024 + (size_t)(1 + 2 * (RING ? RING_NSTAGE : NSTAGE)) * TcTile<D>::BYTES;
   static bool configured = false;
-  cudaError_t e = allow_smem(flash_attn_fwd_tc<D, SHARD>, smem, configured);
+  cudaError_t e = allow_smem(flash_attn_fwd_tc<D, SHARD, M>, smem, configured);
   if (e != cudaSuccess) return e;
   const long long blocks = (long long)BH * ((Sq + BQ - 1) / BQ);
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  flash_attn_fwd_tc<D, SHARD><<<(unsigned)blocks, TC_NT, smem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, Sq, Sk, mk);
+  if constexpr (RING) {  // a cluster of mk.split blocks to each query tile
+    if (blocks * mk.split > 0x7fffffffLL) return cudaErrorInvalidValue;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((unsigned)(blocks * mk.split), 1, 1);
+    cfg.blockDim = dim3(TC_NT, 1, 1);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = mk.split;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    e = cudaLaunchKernelEx(&cfg, flash_attn_fwd_tc<D, SHARD, M>, tq, tk, tv,
+                           static_cast<__nv_bfloat16*>(o), lse, Sq, Sk, mk);
+    if (e != cudaSuccess) return e;
+  } else {
+    if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+    flash_attn_fwd_tc<D, SHARD, M><<<(unsigned)blocks, TC_NT, smem, stream>>>(
+        tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, Sq, Sk, mk);
+  }
   return cudaGetLastError();
 }
 
@@ -343,6 +436,31 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, void*
   return dispatch_t<true>(q, k, v, o, l, BH, Sq, Sk, D, mk, dtype, s);
 }
 
+cudaError_t dispatch_ring(const void* q, const void* k, const void* v, void* o, int BH, int Sq,
+                          int Sk, int D, int hw, int t_new, int f_total, int offset,
+                          void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (BH <= 0 || hw <= 0 || t_new <= 0 || f_total <= 0 || offset < 0 || Sq != t_new * hw ||
+      Sk != f_total * hw)
+    return cudaErrorInvalidValue;
+  // Split a query tile's key tiles over a cluster when its blocks would
+  // leave most SMs idle: up to 264 blocks (two an SM), at least 3 tiles a
+  // block (the newest query frame sees min(end, f_total) slots).
+  const int end = offset + t_new;
+  const int v_tiles = ((end < f_total ? end : f_total) * hw + BK - 1) / BK + 1;
+  const int q_tiles = BH * ((Sq + BQ - 1) / BQ);
+  int split = 264 / q_tiles < v_tiles / 3 ? 264 / q_tiles : v_tiles / 3;
+  split = split < 1 ? 1 : split > 8 ? 8 : split;
+  const RingMask rm{hw, f_total, offset, end, make_fastdiv(hw), make_fastdiv(f_total), split};
+  switch (D) {
+    case 16: return launch_tc<16, false>(q, k, v, o, nullptr, BH, Sq, Sk, rm, s);
+    case 32: return launch_tc<32, false>(q, k, v, o, nullptr, BH, Sq, Sk, rm, s);
+    case 64: return launch_tc<64, false>(q, k, v, o, nullptr, BH, Sq, Sk, rm, s);
+    case 128: return launch_tc<128, false>(q, k, v, o, nullptr, BH, Sq, Sk, rm, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 }  // namespace adflash
 
@@ -369,6 +487,17 @@ int ad_flash_attention_sp_fwd(const void* q, const void* k, const void* v, void*
   if (sp_rank < 0) return (int)cudaErrorInvalidValue;
   return (int)adflash::dispatch(q, k, v, o, lse, BH, Sq, Sk, D, kind, n_frames, hw, sp_rank,
                                 dtype, stream);
+}
+
+// Ring-cache prefill attention, bf16 (fp32 runs the SIMT kernel of
+// csrc/prefill_attention.cu): q and o hold Sq = t_new * hw rows, k and v the
+// Sk = f_total * hw rows of the ring; the mask is RingMask
+// (csrc/flash_tile.cuh). No lse is written.
+int ad_flash_attention_ring_fwd(const void* q, const void* k, const void* v, void* o, int BH,
+                                int Sq, int Sk, int D, int hw, int t_new, int f_total,
+                                int offset, void* stream) {
+  return (int)adflash::dispatch_ring(q, k, v, o, BH, Sq, Sk, D, hw, t_new, f_total, offset,
+                                     stream);
 }
 
 const char* ad_cuda_error_string(int err) {

@@ -1,13 +1,14 @@
 // Shared pieces of the flash-attention kernels (flash_attention_fwd.cu,
 // flash_attention_bwd.cu): type helpers, the frame-mask predicate, the
-// tile-skipping tests, the fp32 kernels' staging of a 64-row tile in shared
-// memory, and the bf16 kernels' tensor-core tiles (TMA loads, wgmma
-// products, accumulator fragments).
+// ring-cache prefill mask, the tile-skipping tests, the fp32 kernels'
+// staging of a 64-row tile in shared memory, and the bf16 kernels'
+// tensor-core tiles (TMA loads, wgmma products, accumulator fragments).
 //
 // Layout: q, o, dq and dO are (B*H, Sq, D) row-major, k, v, dk and dv
 // (B*H, Sk, D); lse and delta are (B*H, Sq) fp32. Sq = Sk but under sequence
 // parallelism, where the queries are one seq rank's rows and the keys those
-// of all sp ranks (Sk = sp * Sq). The fp32 kernels work on 64 rows with 256
+// of all sp ranks (Sk = sp * Sq), and in the ring-cache prefill, where the
+// queries are the new frames and the keys the ring's f_total slots. The fp32 kernels work on 64 rows with 256
 // threads, four neighbouring lanes of one warp to a row; the bf16 kernels
 // on 64 rows with one warpgroup of 128 threads, each thread holding two rows
 // of the wgmma accumulator.
@@ -16,6 +17,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "sm90_tc.cuh"
 
@@ -170,6 +173,90 @@ inline bool make_mask(int kind, int Sq, int Sk, int n_frames, int hw, int sp_ran
     *m = Mask{2, n_frames, hw, fq, sp_rank * fq, make_fastdiv(hw), make_fastdiv(2 * fq)};
   }
   return true;
+}
+
+// The ring-cache prefill mask (ops/masks.py::prefill_frame_mask): the Sq =
+// t_new * hw query rows are frames at absolute positions offset, offset + 1,
+// ..., the Sk = f_total * hw keys the f_total slots of the ring; once the
+// new frames land (end = offset + t_new) slot s holds frame p(s) = end - 1 -
+// ((end - 1 - s) mod f_total), and query frame f sees slot s iff 0 <= p(s)
+// <= offset + f. The fresh causal prefill is offset 0, f_total = t_new.
+// by_hw and by_f divide by hw and f_total. token_visible and tile_whole
+// take a RingMask in place of a Mask (SHARD is unused); visibility only
+// grows with the query frame, so a tile is whole if its oldest query frame
+// sees all of its slots (ring_tiles below finds the visible tiles).
+struct RingMask {
+  int hw;
+  int f_total;
+  int offset;
+  int end;
+  FastDiv by_hw;
+  FastDiv by_f;
+  int split;  // blocks (a thread-block cluster) that share a query tile's key tiles
+};
+
+constexpr int RING_NSTAGE = 4;  // ring stages of the prefill kernel's streamed tiles
+
+__device__ __forceinline__ bool ring_visible(const RingMask& m, int qf, int s) {
+  const int n = m.end - 1 - s + m.f_total;  // > 0, as s < f_total and end >= 1
+  const int p = m.end - 1 - (n - m.f_total * m.by_f.div(n));
+  return p >= 0 && p <= m.offset + qf;
+}
+
+template <bool SHARD>
+__device__ __forceinline__ bool token_visible(const RingMask& m, int qi, int kj) {
+  return ring_visible(m, m.by_hw.div(qi), m.by_hw.div(kj));
+}
+
+template <bool SHARD>
+__device__ __forceinline__ bool tile_whole(const RingMask& m, int q0, int q1, int k0, int k1) {
+  const int qf = m.by_hw.div(q0), s1 = m.by_hw.div(k1);
+  for (int s = m.by_hw.div(k0); s <= s1; ++s)
+    if (!ring_visible(m, qf, s)) return false;
+  return true;
+}
+
+// The key tiles a prefill block reads, without a scan over the ring: the
+// slots visible to the frame of query row q1 (the tile's newest) hold the
+// positions [max(0, end - f_total), offset + frame], which are one run of
+// slots modulo f_total, so at most two ascending runs of tiles [lo1, hi1],
+// [lo2, hi2] (hi < lo: empty). Of their V tiles, cluster rank `rank` of
+// `split` takes the ordinals [rank V / split, (rank + 1) V / split).
+__device__ __forceinline__ void ring_tiles(const RingMask& m, int q1, int rank, int& lo1,
+                                           int& hi1, int& lo2, int& hi2) {
+  lo1 = lo2 = 0;
+  hi1 = hi2 = -1;
+  const int p_lo = max(0, m.end - m.f_total), p_hi = m.offset + m.by_hw.div(q1);
+  if (p_hi < p_lo) return;
+  const int cnt = p_hi - p_lo + 1;                    // <= f_total
+  const int s_lo = p_lo - m.f_total * m.by_f.div(p_lo);
+  auto first = [&](int s) { return (s * m.hw) >> 6; };            // tile of slot s's first row
+  auto last = [&](int s) { return ((s + 1) * m.hw - 1) >> 6; };   // and of its last
+  if (cnt == m.f_total) {
+    lo1 = 0;
+    hi1 = last(m.f_total - 1);
+  } else if (s_lo + cnt <= m.f_total) {
+    lo1 = first(s_lo);
+    hi1 = last(s_lo + cnt - 1);
+  } else {  // wrapped: slots [0, s_lo + cnt - 1 - f_total] and [s_lo, f_total - 1]
+    lo1 = 0;
+    hi1 = last(s_lo + cnt - 1 - m.f_total);
+    lo2 = first(s_lo);
+    hi2 = last(m.f_total - 1);
+    if (hi1 >= lo2) {  // one tile holds the end of the first run and the start of the second
+      hi1 = hi2;
+      hi2 = -1;
+    }
+  }
+  const int len1 = hi1 - lo1 + 1, len2 = max(hi2 - lo2 + 1, 0), v = len1 + len2;
+  const int o0 = rank * v / m.split, o1 = (rank + 1) * v / m.split;
+  const int b_lo1 = lo1, b_lo2 = lo2;
+  lo1 = b_lo1 + o0;
+  hi1 = b_lo1 + min(o1, len1) - 1;
+  lo2 = b_lo2 + max(o0, len1) - len1;
+  hi2 = b_lo2 + o1 - 1 - len1;
+  if (hi1 < lo1) lo1 = 0, hi1 = -1;  // an empty run reads as [0, -1]
+  if (hi2 < lo2) lo2 = 0, hi2 = -1;
 }
 
 // ---------------------------------------------------------------------------

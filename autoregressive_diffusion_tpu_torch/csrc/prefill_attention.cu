@@ -1,6 +1,6 @@
-// Frame-masked prefill attention over the ring KV cache, for sm_90a.
+// Frame-masked prefill attention over the ring KV cache, fp32, for sm_90a.
 //
-// Replaces the JAX package's splash-attention prefill kernels:
+// Replaces, in fp32, the JAX package's splash-attention prefill kernels:
 //   autoregressive_diffusion_tpu/ops/flash_attention.py::prefill_cache_attention
 //   (:201, PrefillMask :96-138) and ::causal_frame_attention (:184). The
 //   causal case is the ring case with offset = 0 and f_total = t_new.
@@ -10,9 +10,13 @@
 //   slot s = j / hw is visible to the query frame f = i / hw:
 //   0 <= p(s) <= offset + f, with p(s) = end-1 - ((end-1-s) mod f_total),
 //   end = offset + t_new (the slot's absolute frame after the write).
-// q arrives pre-scaled by 1/sqrt(d) in the input type (fp32 or bf16); the
-// logits, the online softmax and the sums are fp32; o is written in the
-// input type.
+// q arrives pre-scaled by 1/sqrt(d); everything is fp32.
+//
+// bf16, the model body's type on the serving path, runs the tensor-core
+// flash forward instead (csrc/flash_attention_fwd.cu, entry point
+// ad_flash_attention_ring_fwd, mask RingMask in csrc/flash_tile.cuh): fp32
+// callers (the fp32 models and comparisons) are held to fp32 roundoff,
+// which only these SIMT loops meet. The type alone picks the kernel.
 //
 // What bounds it on the H100: at the rollout's shapes (4 heads, d = 64,
 // 64 tokens a frame, 8 query frames, a 64-slot ring of which at most
@@ -23,10 +27,9 @@
 // tile) -- one frame at 8x8 -- that loops over 64-token K/V tiles and skips,
 // from frame indices alone, every tile the mask rules out (56 of the 64
 // ring slots at the first prefill), so the cost follows the frames written,
-// not the ring's capacity. K and V tiles are staged in shared memory as
-// fp32; products are plain FMAs (tensor-core wgmma/TMA is later work).
+// not the ring's capacity. K and V tiles are staged in shared memory;
+// products are plain fp32 FMAs.
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -36,15 +39,6 @@ constexpr int BQ = 64;   // query rows per block
 constexpr int BK = 64;   // key tokens per tile
 constexpr int NT = 256;  // threads: 4 per query row
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
 // Absolute frame held by ring slot s once frames [0, end) were written.
 __device__ __forceinline__ int slot_pos(int s, int end, int f_total) {
   int r = (end - 1 - s) % f_total;
@@ -52,10 +46,10 @@ __device__ __forceinline__ int slot_pos(int s, int end, int f_total) {
   return end - 1 - r;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NT)
-prefill_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, T* __restrict__ o, int Sq, int Sk,
+prefill_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, float* __restrict__ o, int Sq, int Sk,
                     int hw, int t_new, int f_total, int offset) {
   constexpr int LD = D + 1;   // padded rows: conflict-free column reads
   constexpr int LP = BK + 1;
@@ -69,10 +63,10 @@ prefill_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int bh = blockIdx.y;
   const int q0 = blockIdx.x * BQ;
-  const T* qb = q + (size_t)bh * Sq * D;
-  const T* kb = k + (size_t)bh * Sk * D;
-  const T* vb = v + (size_t)bh * Sk * D;
-  T* ob = o + (size_t)bh * Sq * D;
+  const float* qb = q + (size_t)bh * Sq * D;
+  const float* kb = k + (size_t)bh * Sk * D;
+  const float* vb = v + (size_t)bh * Sk * D;
+  float* ob = o + (size_t)bh * Sq * D;
   const int tid = threadIdx.x;
   const int r = tid >> 2;   // query row of the tile
   const int sub = tid & 3;  // quarter of the row's keys / dims
@@ -81,7 +75,7 @@ prefill_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = tid; i < BQ * D; i += NT) {
     const int rr = i / D, c = i % D;
     const int g = q0 + rr;
-    sQ[rr * LD + c] = g < Sq ? to_f(qb[(size_t)g * D + c]) : 0.f;
+    sQ[rr * LD + c] = g < Sq ? qb[(size_t)g * D + c] : 0.f;
   }
   const int q_last = min(q0 + BQ, Sq) - 1;
   const int qpos_hi = offset + q_last / hw;  // newest query frame of the tile
@@ -112,8 +106,8 @@ prefill_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int g = k0 + rr;
       float kv = 0.f, vv = 0.f;
       if (g < Sk) {
-        kv = to_f(kb[(size_t)g * D + c]);
-        vv = to_f(vb[(size_t)g * D + c]);
+        kv = kb[(size_t)g * D + c];
+        vv = vb[(size_t)g * D + c];
       }
       sK[rr * LD + c] = kv;
       sV[rr * LD + c] = vv;
@@ -174,39 +168,38 @@ prefill_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float inv = 1.f / l;
 #pragma unroll
     for (int d = 0; d < DPT; ++d)
-      ob[(size_t)gq * D + sub + 4 * d] = from_f<T>(acc[d] * inv);
+      ob[(size_t)gq * D + sub + 4 * d] = acc[d] * inv;
   }
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int BH,
                    int Sq, int Sk, int hw, int t_new, int f_total, int offset,
                    cudaStream_t stream) {
   const size_t smem = sizeof(float) * (size_t)(BQ * (D + 1) + 2 * BK * (D + 1) + BQ * (BK + 1));
   static bool configured = false;  // one attribute call per instantiation
   if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(prefill_attn_kernel<T, D>,
+    cudaError_t e = cudaFuncSetAttribute(prefill_attn_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
     if (e != cudaSuccess) return e;
     configured = true;
   }
   dim3 grid((Sq + BQ - 1) / BQ, BH);
-  prefill_attn_kernel<T, D><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), Sq, Sk, hw, t_new, f_total, offset);
+  prefill_attn_kernel<D><<<grid, NT, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), Sq, Sk, hw, t_new, f_total, offset);
   return cudaGetLastError();
 }
 
-template <typename T>
 cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o, int BH,
                        int Sq, int Sk, int D, int hw, int t_new, int f_total,
                        int offset, cudaStream_t s) {
   switch (D) {
-    case 16: return launch<T, 16>(q, k, v, o, BH, Sq, Sk, hw, t_new, f_total, offset, s);
-    case 32: return launch<T, 32>(q, k, v, o, BH, Sq, Sk, hw, t_new, f_total, offset, s);
-    case 64: return launch<T, 64>(q, k, v, o, BH, Sq, Sk, hw, t_new, f_total, offset, s);
-    case 128: return launch<T, 128>(q, k, v, o, BH, Sq, Sk, hw, t_new, f_total, offset, s);
+    case 16: return launch<16>(q, k, v, o, BH, Sq, Sk, hw, t_new, f_total, offset, s);
+    case 32: return launch<32>(q, k, v, o, BH, Sq, Sk, hw, t_new, f_total, offset, s);
+    case 64: return launch<64>(q, k, v, o, BH, Sq, Sk, hw, t_new, f_total, offset, s);
+    case 128: return launch<128>(q, k, v, o, BH, Sq, Sk, hw, t_new, f_total, offset, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -215,18 +208,13 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o, int
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t code (0 = success).
+// fp32 only. Returns a cudaError_t code (0 = success).
 int ad_prefill_attention(const void* q, const void* k, const void* v, void* o, int BH,
                          int Sq, int Sk, int D, int hw, int t_new, int f_total,
-                         int offset, int dtype, void* stream) {
+                         int offset, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (BH <= 0 || Sq <= 0 || Sk <= 0 || hw <= 0 || f_total <= 0) return (int)cudaErrorInvalidValue;
-  if (dtype == 0)
-    return (int)dispatch_d<float>(q, k, v, o, BH, Sq, Sk, D, hw, t_new, f_total, offset, s);
-  if (dtype == 1)
-    return (int)dispatch_d<__nv_bfloat16>(q, k, v, o, BH, Sq, Sk, D, hw, t_new, f_total,
-                                          offset, s);
-  return (int)cudaErrorInvalidValue;
+  return (int)dispatch_d(q, k, v, o, BH, Sq, Sk, D, hw, t_new, f_total, offset, s);
 }
 
 const char* ad_cuda_error_string(int err) {

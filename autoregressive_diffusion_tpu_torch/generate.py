@@ -19,7 +19,7 @@ import torch
 from .models import Precond, UNetConfig, init_cache, init_weights
 from .sampling import generate
 from .utils.device import resolve_device
-from .utils.profiling import window_summary
+from .utils.profiling import kernel_times, window_summary
 
 GYM_CONFIG = dict(img_resolution=64, img_channels=8, label_dim=4,
                   model_channels=32, channel_mult=(1, 2, 4, 8), num_blocks=2,
@@ -130,8 +130,10 @@ def profile_decode(model, cache, calls: int = 10, trace_path=None) -> dict:
         prof.export_chrome_trace(str(trace_path))
 
     w = window_summary(prof, wall, calls)
+    decode_us = sum(us for name, us in kernel_times(prof).items() if "decode_" in name)
     return {"calls": calls, "wall_ms_per_call": w["wall_ms"],
             "device_busy_ms_per_call": w["device_busy_ms"],
+            "decode_block_device_ms_per_call": decode_us / 1e3 / calls,
             "device_idle_share": w["device_idle_share"],
             "kernel_launches_per_call": w["kernel_launches"],
             "host_ops_per_call": w["host_ops"],

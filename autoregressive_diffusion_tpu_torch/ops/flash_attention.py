@@ -1,8 +1,10 @@
 """Flash attention under frame masks: hand-written CUDA kernels and their
 plain PyTorch versions.
 
-Prefill (csrc/prefill_attention.cu) replaces the splash-attention prefill
-kernels of the JAX package:
+Prefill replaces the splash-attention prefill kernels of the JAX package
+(bf16: the tensor-core flash forward of csrc/flash_attention_fwd.cu under
+the ring mask, entry point ad_flash_attention_ring_fwd; fp32: the SIMT
+kernel of csrc/prefill_attention.cu):
   * ops/flash_attention.py::prefill_cache_attention (:201) -- t_new query
     frames over the whole f_total-slot ring KV cache at a static offset,
     the wrapped ring included (PrefillMask, :96-138);
@@ -75,9 +77,11 @@ causal_sp_bwd_launches = 0
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64, 128)
 _SIGNATURES = {"ad_prefill_attention": (
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
     ctypes.c_int)}
 _FWD_SIGNATURES = {
+    "ad_flash_attention_ring_fwd": (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p], ctypes.c_int),
     "ad_flash_attention_fwd": (
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p], ctypes.c_int),
     "ad_flash_attention_sp_fwd": (
@@ -125,15 +129,26 @@ def _launch(qs, k, v, t_new, f_total, offset, hw) -> torch.Tensor:
         raise ValueError(f"prefill attention: offset={offset}, t_new={t_new}")
     if not (qs.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("prefill attention: q, k, v must be contiguous")
+    qs, k, v = (_tma_aligned(t) for t in (qs, k, v))
     o = torch.empty_like(qs)
-    lib = _build.load("prefill_attention", _SIGNATURES)
-    err = lib.ad_prefill_attention(
-        qs.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        b * h, sq, k.shape[2], d, hw, t_new, f_total, offset,
-        _DTYPES[qs.dtype], torch.cuda.current_stream(qs.device).cuda_stream)
+    args = (qs.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b * h, sq, k.shape[2], d,
+            hw, t_new, f_total, offset, torch.cuda.current_stream(qs.device).cuda_stream)
+    if qs.dtype == torch.float32:
+        lib = _build.load("prefill_attention", _SIGNATURES)
+        err = lib.ad_prefill_attention(*args)
+    else:
+        lib = _build.load("flash_attention_fwd", _FWD_SIGNATURES)
+        err = lib.ad_flash_attention_ring_fwd(*args)
     _build.check(lib, err, "prefill attention")
     launches += 1
     return o
+
+
+def _tma_aligned(t):
+    """t, or a copy of it when it is bf16 and its data does not start on a
+    16-byte boundary (a contiguous view at an odd storage offset): the
+    tensor-core kernels read bf16 tensors by TMA, which needs one."""
+    return t.clone() if t.dtype == torch.bfloat16 and t.data_ptr() % 16 else t
 
 
 def prefill_attention(qs, k, v, t_new: int, f_total: int, offset: int,
@@ -276,9 +291,6 @@ def _flash_args(kind, n_frames, hw, sp_rank, rows, keys):
                                  f"{shape} {qs.dtype}")
             if not t.is_contiguous():
                 raise ValueError("flash attention: tensors must be contiguous")
-            if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
-                raise ValueError("flash attention: bf16 tensors must start on a 16-byte "
-                                 "boundary (the kernels read them by TMA)")
     return b, h, sq, sk, d
 
 
@@ -289,6 +301,7 @@ def _count(kind, sp_rank, which):
 
 def _launch_fwd(qs, k, v, kind, n_frames, hw, sp_rank=None):
     b, h, sq, sk, d = _flash_args(kind, n_frames, hw, sp_rank, (qs,), (k, v))
+    qs, k, v = (_tma_aligned(t) for t in (qs, k, v))
     o = torch.empty_like(qs)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=qs.device)
     lib = _build.load("flash_attention_fwd", _FWD_SIGNATURES)
@@ -307,6 +320,7 @@ def _launch_fwd(qs, k, v, kind, n_frames, hw, sp_rank=None):
 
 def _launch_bwd(qs, k, v, o, lse, do, kind, n_frames, hw, sp_rank=None):
     b, h, sq, sk, d = _flash_args(kind, n_frames, hw, sp_rank, (qs, o, do), (k, v))
+    qs, k, v, o, do = (_tma_aligned(t) for t in (qs, k, v, o, do))
     if (lse.device != qs.device or lse.dtype != torch.float32
             or tuple(lse.shape) != (b, h, sq) or not lse.is_contiguous()):
         raise ValueError(f"flash attention: lse is {tuple(lse.shape)} {lse.dtype} on "

@@ -16,7 +16,8 @@ the products take it and the weights in the working type and are summed in
 fp32, the blend is fp32 and the result is rounded once.
 
 `fused_decode_block` replaces autoregressive_diffusion_tpu/ops/fused_conv.py::fused_decode_block
-(:1130, Pallas kernel _decode_kernel :1069): one T=1 cached-decode step of
+(:1130, Pallas kernel _decode_kernel :1069), bf16 on the tensor cores and
+fp32 on SIMT kernels (csrc/decode_block.cu): one T=1 cached-decode step of
 an attention-free Block -- [enc: 1x1 skip, pixel norm] -> mp_silu -> conv0
 3x3 + context conv over the 2-frame ring a0, gate g0 -> *cv -> mp_silu ->
 conv1 3x3 + context over ring a1, gate g1 -> residual mp_sum -> clip. It
@@ -49,7 +50,7 @@ conv_bwd_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SIGNATURES = {"ad_decode_block": (
-    [ctypes.c_void_p] * 14 + [ctypes.c_int] * 9
+    [ctypes.c_void_p] * 15 + [ctypes.c_int] * 9
     + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
        ctypes.c_void_p],
     ctypes.c_int)}
@@ -157,6 +158,9 @@ def _launch(x, a0, a1, wsk, w20, w30, w21, w31, cv, gates, flavor, res_t,
     t0 = torch.empty((b, 1, h, w, c0), dtype=dt, device=dev)
     t1 = torch.empty((b, 1, h, w, co), dtype=dt, device=dev)
     res = torch.empty((b, h, w, co), dtype=torch.float32, device=dev)
+    # the bf16 kernels' context sums (ctx0, ctx1), fp32
+    ctx = (torch.empty((2, b, h, w, co), dtype=torch.float32, device=dev)
+           if with_ctx and dt == torch.bfloat16 else None)
 
     def ptr(v):
         return None if v is None else v.data_ptr()
@@ -165,7 +169,7 @@ def _launch(x, a0, a1, wsk, w20, w30, w21, w31, cv, gates, flavor, res_t,
     err = lib.ad_decode_block(
         x.data_ptr(), ptr(a0), ptr(a1), ptr(wsk), w20.data_ptr(), ptr(w30),
         w21.data_ptr(), ptr(w31), cv.data_ptr(), gates.data_ptr(),
-        y.data_ptr(), t0.data_ptr(), t1.data_ptr(), res.data_ptr(),
+        y.data_ptr(), t0.data_ptr(), t1.data_ptr(), res.data_ptr(), ptr(ctx),
         b, h, w, cin, c0, co, int(flavor == "enc"), int(wsk is not None),
         int(bool(with_ctx)), float(res_t),
         float(clip) if clip is not None else 0.0, int(clip is not None),

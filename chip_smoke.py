@@ -8,11 +8,13 @@ Phases, each of which fails the run with a non-zero exit:
      kernel from csrc/ with nvcc for sm_90a (all sources at once), and turns
      TF32 off for matmuls and cuDNN convolutions so that fp32 comparisons
      are fp32;
-  2. the prefill-attention kernel against its plain PyTorch version at the
-     gym's shapes (4 heads, d=64, 64 tokens a frame): fresh causal t=8; ring
-     offset 0, t_new=8, f_total=64; offset 10, t_new=2; wrapped ring at
-     offset 60, t_new=8 -- in fp32 and bf16, with times of the kernel, the
-     plain version and F.scaled_dot_product_attention on the same mask;
+  2. the prefill-attention kernels against their plain PyTorch version at
+     the gym's shapes (4 heads, d=64, 64 tokens a frame): fresh causal t=8;
+     ring offset 0, t_new=8, f_total=64; offset 10, t_new=2; wrapped ring at
+     offset 60, t_new=8 -- in fp32 (SIMT kernel) and bf16 (the tensor-core
+     flash forward under the ring mask), with device times of the kernel
+     and of F.scaled_dot_product_attention on the same mask (device_ms),
+     beside their wall times a call and the plain version's;
   2b. the DART and full flash-attention kernels, forward and backward,
      against their plain versions (o, lse, dq, dk, dv) in fp32 (SIMT
      kernels) and bf16 (tensor-core kernels) at every attention shape of
@@ -23,12 +25,15 @@ Phases, each of which fails the run with a non-zero exit:
      (for the full kind also with no mask), forward and backward; kernel
      and SDPA times are device times (device_ms: the calls queued behind a
      sleeping kernel, so the host's launch cost is not counted), the wall
-     time a call beside them. The build's registers and spill bytes of
-     every flash-kernel instantiation are printed first, and the wgmma and
-     TMA-load instructions in the machine code of each tensor-core kernel
-     (cuobjdump; a kernel with none fails the run);
-  3. the fused decode-Block kernel against its plain version for every
-     attention-free Block shape of the gym model, fp32 and bf16, with times;
+     time a call beside them;
+  3. the fused decode-Block kernels against their plain version for every
+     attention-free Block shape of the gym model, fp32 (SIMT) and bf16
+     (tensor cores), with the kernels' device time and wall time a call and
+     the plain version's wall time. The wgmma/mma.sync and TMA/cp.async
+     instructions of every tensor-core kernel (flash, prefill, Block) are
+     counted in the machine code (cuobjdump; a kernel with no tensor-core
+     product or no asynchronous copy fails the run), and every kernel's
+     registers and spills are printed from the build;
   4. end to end against the plain versions: a small model and the
      full-width gym model on the card (kernels, fp32) agree with the same
      models on the CPU (plain versions) on a prefill and a cached decode step;
@@ -185,9 +190,10 @@ def demangle(names):
 
 
 def sass_counts(lib, part="_tc"):
-    """{kernel: (HGMMA, UTMALDG)}: the wgmma and TMA-load instructions in
-    the machine code (cuobjdump -sass) of every kernel of a built library
-    whose mangled name holds `part`; None without cuobjdump."""
+    """{kernel: (HGMMA, HMMA, UTMALDG, LDGSTS)}: the tensor-core products
+    (wgmma, mma.sync) and asynchronous copies (TMA, cp.async) in the machine
+    code (cuobjdump -sass) of every kernel of a built library whose mangled
+    name holds `part`; None without cuobjdump."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
         return None
@@ -197,7 +203,8 @@ def sass_counts(lib, part="_tc"):
     for fn in re.split(r"\n(?=\s*Function : )", text):
         m = re.search(r"Function : (\S+)", fn)
         if m and part in m.group(1):
-            found[m.group(1)] = (fn.count("HGMMA."), fn.count("UTMALDG"))
+            found[m.group(1)] = tuple(fn.count(op) for op in ("HGMMA.", "HMMA.", "UTMALDG",
+                                                               "LDGSTS"))
     return dict(zip(demangle(list(found)), found.values()))
 
 
@@ -255,23 +262,31 @@ def attention_phase(fa, masks, F):
             max_abs, err, tol, ok = compare(got, want, dtype, TOL_FP32_ATTN)
             fmask = masks.prefill_frame_mask(t_new, f_total, off)
             tok_mask = torch.as_tensor(masks.expand_to_tokens(fmask, hw), device=dev)
-            ms = time_ms(lambda: fa.prefill_attention(qs, k, v, t_new, f_total, off, hw))
+
+            def kernel():
+                return fa.prefill_attention(qs, k, v, t_new, f_total, off, hw)
+
+            def sdpa():
+                return F.scaled_dot_product_attention(qs, k, v, attn_mask=tok_mask, scale=1.0)
+
+            ms, lib_ms = device_ms(kernel), device_ms(sdpa)
+            wall_ms, lib_wall_ms = time_ms(kernel), time_ms(sdpa)
             plain_ms = time_ms(lambda: fa.prefill_attention_plain(qs, k, v, t_new,
                                                                   f_total, off, hw))
-            lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-                qs, k, v, attn_mask=tok_mask, scale=1.0))
             pairs = int(fmask.sum()) * hw * hw * heads
             slots = int(fmask.any(axis=0).sum())
             item = qs.element_size()
             nbytes = item * heads * d * (2 * t_new * hw + 2 * slots * hw)
             bound_ms, bound_by = bound(4 * d * pairs, nbytes, dtype)
             row = dict(case=label, dtype=str(dtype).split(".")[-1], max_abs_err=max_abs,
-                       err=err, tol=tol, ok=bool(ok), ms=ms, plain_ms=plain_ms,
-                       library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by)
+                       err=err, tol=tol, ok=bool(ok), ms=ms, wall_ms=wall_ms,
+                       plain_ms=plain_ms, library_ms=lib_ms, library_wall_ms=lib_wall_ms,
+                       bound_ms=bound_ms, bound_by=bound_by)
             rows.append(row)
             log(f"# attn {row['dtype']:8s} {label:24s} max_abs={max_abs:.3e} err={err:.3e} "
-                f"tol={tol:.0e} ok={ok} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-                f"library_ms={lib_ms:.4f} bound_ms={bound_ms:.5f} ({bound_by})")
+                f"tol={tol:.0e} ok={ok} | device ms kernel={ms:.4f} sdpa={lib_ms:.4f} | wall ms "
+                f"kernel={wall_ms:.4f} sdpa={lib_wall_ms:.4f} plain={plain_ms:.4f} | "
+                f"bound_ms={bound_ms:.5f} ({bound_by})")
     return rows
 
 
@@ -494,19 +509,24 @@ def decode_block_phase(fc, cfg):
                     worst = max(worst, max_abs)
                     errs.append(err)
                     ok = ok and ok_one
-                ms = time_ms(lambda: fc.fused_decode_block(*pos, **kw))
+
+                def kernel():
+                    return fc.fused_decode_block(*pos, **kw)
+
+                ms, wall_ms = device_ms(kernel), time_ms(kernel)
                 plain_ms = time_ms(lambda: fc.fused_decode_block_plain(*pos, **kw))
                 flops, nbytes = block_cost(shape, dtype, with_ctx)
                 bound_ms, bound_by = bound(flops, nbytes, dtype)
                 key = (shape, str(dtype).split(".")[-1], with_ctx)
                 results[key] = dict(max_abs_err=worst, err=max(errs), tol=tol, ok=bool(ok),
-                                    ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                                    bound_by=bound_by)
+                                    ms=ms, wall_ms=wall_ms, plain_ms=plain_ms,
+                                    bound_ms=bound_ms, bound_by=bound_by)
                 h, cin, c0, co, flavor, skip = shape
                 log(f"# block {key[1]:8s} H={h:2d} Cin={cin:3d} C0={c0:3d} Co={co:3d} "
                     f"{flavor} skip={int(skip)} ctx={int(with_ctx)} max_abs={worst:.3e} "
-                    f"err={max(errs):.3e} tol={tol:.0e} ok={ok} kernel_ms={ms:.4f} "
-                    f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.5f} ({bound_by})")
+                    f"err={max(errs):.3e} tol={tol:.0e} ok={ok} device_ms={ms:.4f} "
+                    f"wall_ms={wall_ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.5f} "
+                    f"({bound_by})")
     return shapes, results
 
 
@@ -1150,6 +1170,9 @@ def sp_path_phase(build_trainer, n_convs):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None, help="also write the detailed results here")
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="stop after phase 3 (the kernel checks and times), printing no "
+                         "result line: for timing kernels, not for proving the port")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -1187,26 +1210,24 @@ def main(argv=None):
     for name, text in logs.items():
         ptxas[name] = ptxas_report(text)
         for fn, regs, st, ld in ptxas[name]:
-            if name.startswith("flash_attention"):
-                log(f"# ptxas {name}: {fn}: {regs} registers, spill stores {st} B, "
-                    f"spill loads {ld} B")
-        if not name.startswith("flash_attention"):
-            worst = max(ptxas[name], key=lambda r: r[1], default=None)
-            if worst:
-                log(f"# ptxas {name}: {len(ptxas[name])} kernels, at most {worst[1]} "
-                    f"registers ({worst[0]}), spills {sum(r[2] + r[3] for r in ptxas[name])} B")
+            log(f"# ptxas {name}: {fn}: {regs} registers, spill stores {st} B, "
+                f"spill loads {ld} B")
 
     failures = []
     sass = {}
-    for name in ("flash_attention_fwd", "flash_attention_bwd"):
+    for name in ("flash_attention_fwd", "flash_attention_bwd", "decode_block"):
         sass[name] = sass_counts(_build._lib_path(name))
         if sass[name] is None:
             log(f"# sass {name}: cuobjdump not found, instructions not counted")
             continue
-        for fn, (n_mma, n_tma) in sass[name].items():
-            log(f"# sass {name}: {fn}: {n_mma} wgmma (HGMMA), {n_tma} TMA loads (UTMALDG)")
-            if not (n_mma and n_tma):
-                failures.append(f"{fn}: no wgmma or no TMA load in its machine code")
+        for fn, (n_wgmma, n_mma, n_tma, n_cpa) in sass[name].items():
+            log(f"# sass {name}: {fn}: {n_wgmma} wgmma (HGMMA), {n_mma} mma.sync (HMMA), "
+                f"{n_tma} TMA loads (UTMALDG), {n_cpa} cp.async (LDGSTS)")
+            # the flash kernels (prefill's ring kind among them) are wgmma fed by
+            # TMA, the decode Block's mma.sync fed by cp.async
+            if not ((n_wgmma and n_tma) if name.startswith("flash") else (n_mma and n_cpa)):
+                failures.append(f"{fn}: no tensor-core product or no asynchronous copy in its "
+                                f"machine code")
     attn_rows = attention_phase(fa, masks, F)
     failures += [f"attention {r['dtype']} {r['case']}" for r in attn_rows if not r["ok"]]
 
@@ -1215,6 +1236,10 @@ def main(argv=None):
     failures += [f"flash attention {k}" for k, r in flash_results.items() if not r["ok"]]
     shapes, block_results = decode_block_phase(fc, gym)
     failures += [f"decode block {k}" for k, r in block_results.items() if not r["ok"]]
+    if args.kernels_only:
+        log(f"# kernels-only: stopped after phase 3, {time.perf_counter() - t_start:.1f} s, "
+            f"{len(failures)} failures {failures}")
+        return 1 if failures else 0
 
     tiny = dict(img_resolution=16, img_channels=4, model_channels=16, channel_mult=(1, 2),
                 num_blocks=1, max_frames=8, channels_per_head=16)
@@ -1299,7 +1324,7 @@ def main(argv=None):
     per_call = [block_results[(s, "bfloat16", True)] for _, s in shapes]
     kernels = [
         dict(name="prefill_attention", route="cuda",
-             source=f"{PKG}/csrc/prefill_attention.cu",
+             source=f"{PKG}/csrc/flash_attention_fwd.cu",
              replaces="autoregressive_diffusion_tpu/ops/flash_attention.py:201",
              launches=launches_a, max_abs_err=main_attn["max_abs_err"], ms=main_attn["ms"],
              plain_ms=main_attn["plain_ms"], bound_ms=main_attn["bound_ms"],
@@ -1399,7 +1424,9 @@ def main(argv=None):
         if k["launches"] == 0:
             failures.append(f"{k['name']} never launched on the main path")
     log("# decode_block ms/plain_ms/bound_ms are sums over the 17 Blocks of one denoiser "
-        "call; prefill_attention's are at the first prefill (t_new=8, f_total=64)")
+        "call; prefill_attention's are at the first prefill (t_new=8, f_total=64); the "
+        "ms and library_ms of both are device times (library: F.scaled_dot_product_attention "
+        "on the same mask), plain_ms wall times")
 
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

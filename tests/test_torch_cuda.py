@@ -31,54 +31,161 @@ def rel_err(got, want):
     return float((got.float() - want.float()).std() / want.float().std())
 
 
+PREFILL_SHAPES = [  # b, heads, d, hw, t_new, f_total, offset
+    (1, 4, 64, 64, 8, 8, 0), (1, 4, 64, 64, 8, 64, 0), (1, 4, 64, 64, 2, 64, 10),
+    (1, 4, 64, 64, 8, 64, 60), (1, 4, 64, 64, 3, 5, 0),  # the rollout's head shape
+    (1, 4, 16, 64, 8, 64, 0),     # d = 16
+    (1, 4, 32, 64, 2, 64, 10),    # d = 32, the re-prime
+    (1, 2, 128, 64, 8, 64, 60),   # d = 128, the wrapped ring
+    (2, 4, 64, 40, 8, 64, 60),    # hw = 40: frames split across tiles; batch 2, wrapped
+    (1, 3, 64, 40, 2, 64, 10),    # hw = 40, the re-prime
+    (2, 2, 64, 40, 5, 5, 0),      # hw = 40, fresh causal
+]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("t_new,f_total,offset", [(8, 8, 0), (8, 64, 0), (2, 64, 10),
-                                                  (8, 64, 60), (3, 5, 0)])
-def test_prefill_kernel_matches_plain(cuda, dtype, t_new, f_total, offset):
-    g = torch.Generator(device=cuda).manual_seed(0)
-    hw, d = 64, 64
-    q = (torch.randn((1, 4, t_new * hw, d), generator=g, device=cuda) / 8).to(dtype)
-    k = torch.randn((1, 4, f_total * hw, d), generator=g, device=cuda).to(dtype)
-    v = torch.randn((1, 4, f_total * hw, d), generator=g, device=cuda).to(dtype)
+@pytest.mark.parametrize("shape", PREFILL_SHAPES)
+def test_prefill_kernel_matches_plain(cuda, dtype, shape):
+    """The rollout's shapes, other head dims, frames that straddle 64-row
+    tiles (the per-token mask of partly visible tiles), batch 2, the
+    wrapped ring and the re-prime."""
+    b, heads, d, hw, t_new, f_total, offset = shape
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q = (torch.randn((b, heads, t_new * hw, d), generator=g, device=cuda) * d ** -0.5).to(dtype)
+    k = torch.randn((b, heads, f_total * hw, d), generator=g, device=cuda).to(dtype)
+    v = torch.randn((b, heads, f_total * hw, d), generator=g, device=cuda).to(dtype)
     before = fa.launches
     got = fa.prefill_attention(q, k, v, t_new, f_total, offset, hw)
     want = fa.prefill_attention_plain(q, k, v, t_new, f_total, offset, hw)
     torch.cuda.synchronize()
     assert fa.launches == before + 1
+    assert bool(torch.isfinite(got).all())
     if dtype == torch.float32:
         assert float((got - want).abs().max()) <= 1e-4
     else:
         assert rel_err(got, want) <= 1e-2
 
 
+def misaligned(t):
+    """A contiguous copy of t whose data starts 2 bytes past an aligned
+    address (a view at an odd storage offset)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:]
+    return buf.view(t.shape).copy_(t)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(64, 96, 96, 32, "dec", True), (32, 32, 64, 64, "enc", True),
-                                   (8, 256, 256, 256, "dec", False), (16, 16, 16, 16, "enc", False)])
-@pytest.mark.parametrize("with_ctx", [True, False])
-def test_decode_block_kernel_matches_plain(cuda, dtype, shape, with_ctx):
+def test_misaligned_bf16_views_are_taken(cuda):
+    """bf16 views that do not start on a 16-byte boundary go through the
+    flash and prefill wrappers (copied before the TMA launch) and give the
+    plain versions' results."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    hw, t_new, f_total = 64, 2, 8
+    q, k, v = ((torch.randn((1, 4, n * hw, 64), generator=g, device=cuda) / 8).bfloat16()
+               for n in (t_new, f_total, f_total))
+    qm, km, vm = misaligned(q), misaligned(k), misaligned(v)
+    assert qm.data_ptr() % 16 and qm.is_contiguous()
+    got = fa.prefill_attention(qm, km, vm, t_new, f_total, 3, hw)
+    want = fa.prefill_attention_plain(q, k, v, t_new, f_total, 3, hw)
+    assert rel_err(got, want) <= 1e-2
+    qs, k, v, do = flash_inputs(cuda, torch.bfloat16, "dart", 1, 2, 2, 64, 64, seed=8)
+    qs_m, k_m, v_m, do_m = (misaligned(a) for a in (qs, k, v, do))
+    o, lse = fa.flash_attention_fwd(qs_m, k_m, v_m, "dart", 2, 64)
+    o_p, lse_p = fa.flash_attention_fwd_plain(qs, k, v, "dart", 2, 64)
+    grads = fa.flash_attention_bwd(qs_m, k_m, v_m, misaligned(o_p), lse_p, do_m, "dart", 2, 64)
+    grads_p = fa.flash_attention_bwd_plain(qs, k, v, o_p, lse_p, do, "dart", 2, 64)
+    torch.cuda.synchronize()
+    assert rel_err(o, o_p) <= 1e-2
+    assert float((lse - lse_p).abs().max()) <= flash_tol(lse_p, qs.shape[2])
+    for a, w in zip(grads, grads_p):
+        assert rel_err(a, w) <= 1e-2
+
+
+def gym_block_shapes():
+    """(H, Cin, C0, Co, flavor, has_skip) of the gym denoiser's 17
+    attention-free Blocks, in execution order (chip_smoke.py's
+    decode_block_shapes)."""
+    from autoregressive_diffusion_tpu_torch.generate import GYM_CONFIG
+    from autoregressive_diffusion_tpu_torch.models import UNetConfig
+    out = []
+    for _, _, spec in UNetConfig(**GYM_CONFIG).block_layout():
+        if spec["kind"] == "block" and spec["attention"] is None:
+            cin, co = spec["cin"], spec["cout"]
+            c0 = co if spec["flavor"] == "enc" else cin
+            out.append((spec["res"], cin, c0, co, spec["flavor"], cin != co))
+    return out
+
+
+def block_args(dev, dtype, shape, with_ctx, b=1, seed=1):
     h, cin, c0, co, flavor, skip = shape
-    g = torch.Generator(device=cuda).manual_seed(1)
+    g = torch.Generator(device=dev).manual_seed(seed)
 
     def rn(*s):
-        return torch.randn(s, generator=g, device=cuda)
+        return torch.randn(s, generator=g, device=dev)
 
-    args = [rn(1, 1, h, h, cin).to(dtype),
-            rn(1, 2, h, h, c0).to(dtype) if with_ctx else None,
-            rn(1, 2, h, h, co).to(dtype) if with_ctx else None,
+    return [rn(b, 1, h, h, cin).to(dtype),
+            rn(b, 2, h, h, c0).to(dtype) if with_ctx else None,
+            rn(b, 2, h, h, co).to(dtype) if with_ctx else None,
             mp_weight(rn(cin, co)).to(dtype) if skip else None,
             mp_weight(rn(3, 3, c0, co)).to(dtype), mp_weight(rn(2, 3, 3, c0, co)).to(dtype),
             mp_weight(rn(3, 3, co, co)).to(dtype), mp_weight(rn(2, 3, 3, co, co)).to(dtype),
-            (1 + 0.5 * rn(1, co)).to(dtype), 0.1 + 0.8 * torch.rand((1, 2), device=cuda)]
-    got = fc.fused_decode_block(*args, flavor, 0.3, 256.0, with_ctx)
-    want = fc.fused_decode_block_plain(*args, flavor, 0.3, 256.0, with_ctx)
+            (1 + 0.5 * rn(b, co)).to(dtype), 0.1 + 0.8 * torch.rand((b, 2), generator=g,
+                                                                     device=dev)]
+
+
+BLOCK_CASES = (  # (H, Cin, C0, Co, flavor, has_skip), batch
+    [(s, 1) for s in gym_block_shapes()]                         # the gym model's 17 Blocks
+    + [((16, 16, 16, 16, "enc", False), 1), ((8, 256, 256, 256, "dec", False), 1)]
+    + [((16, 256, 256, 256, "dec", False), 2), ((32, 32, 64, 64, "enc", True), 2),
+       ((24, 40, 24, 24, "enc", True), 2),    # ragged tiles; a stage part empty (24 channels)
+       ((20, 20, 20, 12, "dec", True), 2)])   # channels no multiple of 8: no cp.async
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", BLOCK_CASES)
+@pytest.mark.parametrize("with_ctx", [True, False])
+def test_decode_block_kernel_matches_plain(cuda, dtype, case, with_ctx):
+    """Every attention-free Block of the gym denoiser, small and odd
+    shapes, and batch 2 (each row its own gates, modulation and rings),
+    with and without the context, against the plain version."""
+    shape, b = case
+    args = block_args(cuda, dtype, shape, with_ctx, b=b)
+    before = fc.launches
+    got = fc.fused_decode_block(*args, shape[4], 0.3, 256.0, with_ctx)
+    want = fc.fused_decode_block_plain(*args, shape[4], 0.3, 256.0, with_ctx)
     torch.cuda.synchronize()
-    for a, b in zip(got, want):
+    assert fc.launches == before + 1
+    for a, w in zip(got, want):
+        assert bool(torch.isfinite(a).all())
         if dtype == torch.float32:
-            assert float((a - b).abs().max()) <= 1e-3
+            assert float((a - w).abs().max()) <= 1e-3
         else:
-            assert rel_err(a, b) <= 1e-2
+            assert rel_err(a, w) <= 1e-2
+
+
+@pytest.mark.cuda
+def test_serving_bf16_kernels_repeat_bit_for_bit(cuda):
+    """The bf16 prefill and decode-Block kernels, run twice on the same
+    inputs, give the same bits: the split reductions are summed in a fixed
+    order, without atomics."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    q, k, v = (torch.randn((1, 4, n * 64, 64), generator=g, device=cuda).bfloat16()
+               for n in (8, 64, 64))
+
+    def prefill():
+        return fa.prefill_attention(q, k, v, 8, 64, 60, 64)
+
+    first = prefill().clone()
+    assert torch.equal(first, prefill())
+    for shape in [(8, 256, 256, 256, "dec", False), (16, 256, 256, 256, "dec", False),
+                  (64, 96, 96, 32, "dec", True)]:
+        args = block_args(cuda, torch.bfloat16, shape, True, seed=13)
+        first = [t.clone() for t in fc.fused_decode_block(*args, shape[4], 0.3, 256.0, True)]
+        second = fc.fused_decode_block(*args, shape[4], 0.3, 256.0, True)
+        torch.cuda.synchronize()
+        for a, b in zip(first, second):
+            assert torch.equal(a, b), shape
 
 
 @pytest.mark.cuda
