@@ -9,11 +9,15 @@ forward pallas_call :830, backward _fused_bwd :879) on channels-last
 tensors, without the TPU's packed lane layout: the input transform
 (x * cvec, mp_silu), the 3x3 conv on every frame of the DART concat, the
 2x3x3 context conv over the past clean frames (ones before the clip start)
-and the gate blend, in one forward kernel; dx, dw2, dw3, dcvec and dgates in
-one backward call. The plain version fixes the order of roundings that the
-kernels follow: the transform is fp32 and is rounded to the working type,
-the products take it and the weights in the working type and are summed in
-fp32, the blend is fp32 and the result is rounded once.
+and the gate blend, in one forward call; dx, dw2, dw3, dcvec and dgates in
+one backward call. bf16 runs on the tensor cores (an implicit GEMM behind
+an elementwise prologue), fp32 on SIMT kernels; the type alone picks the
+path. The plain version fixes the order of roundings that the kernels
+follow: the transform is fp32 and is rounded to the working type, the
+products take it and the weights in the working type and are summed in
+fp32, the blend is fp32 and the result is rounded once. The bf16 backward
+adds one rounding: it forms the gated output gradients (dy2d, dctx) in
+fp32 and rounds them to bf16 before its products.
 
 `fused_decode_block` replaces autoregressive_diffusion_tpu/ops/fused_conv.py::fused_decode_block
 (:1130, Pallas kernel _decode_kernel :1069), bf16 on the tensor cores and
@@ -42,9 +46,8 @@ from . import _build
 # Fused-Block launches since the last reset (chip_smoke.py zeroes and reads
 # it). One count is one Block: the kernel's three stages run back to back.
 launches = 0
-# Train-mode fused gated conv: forward launches, and backward calls (one
-# count is one call of the backward entry point, whose stages run back to
-# back on one stream).
+# Train-mode fused gated conv: forward and backward calls (one count is one
+# call of an entry point, whose kernels run back to back on one stream).
 conv_fwd_launches = 0
 conv_bwd_launches = 0
 
@@ -54,10 +57,14 @@ _SIGNATURES = {"ad_decode_block": (
     + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
        ctypes.c_void_p],
     ctypes.c_int)}
-_FWD_SIGNATURES = {"ad_fused_conv_fwd": (
-    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p], ctypes.c_int)}
-_BWD_SIGNATURES = {"ad_fused_conv_bwd": (
-    [ctypes.c_void_p] * 16 + [ctypes.c_int] * 10 + [ctypes.c_void_p], ctypes.c_int)}
+_FWD_SIGNATURES = {
+    "ad_fused_conv_fwd": ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
+                          ctypes.c_int),
+    "ad_fused_conv_fwd_scratch": ([ctypes.c_int] * 8, ctypes.c_longlong)}
+_BWD_SIGNATURES = {
+    "ad_fused_conv_bwd": ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
+                          ctypes.c_int),
+    "ad_fused_conv_bwd_scratch": ([ctypes.c_int] * 8, ctypes.c_longlong)}
 
 
 def _silu_f32(z):
@@ -256,6 +263,12 @@ def _ptr(v):
     return None if v is None else v.data_ptr()
 
 
+def _scratch(lib, fn, dev, *dims):
+    """Uninitialised scratch of the size the library's `fn` gives for these
+    dimensions (torch's allocations are 256-byte aligned)."""
+    return torch.empty(getattr(lib, fn)(*dims), dtype=torch.uint8, device=dev)
+
+
 def _launch_conv_fwd(x, w2, w3, cvec, gates, silu_in, with_ctx, want_diff):
     global conv_fwd_launches
     b, f, h, w, c, co = _conv_args(x, w2, w3, cvec, gates, with_ctx)
@@ -264,24 +277,16 @@ def _launch_conv_fwd(x, w2, w3, cvec, gates, silu_in, with_ctx, want_diff):
     out = torch.empty((b, f, h, w, co), dtype=x.dtype, device=x.device)
     diff = torch.empty_like(out) if (with_ctx and want_diff) else None
     lib = _build.load("fused_conv_fwd", _FWD_SIGNATURES)
+    dims = (b, f, h, w, c, co, int(bool(with_ctx)), _DTYPES[x.dtype])
+    scratch = _scratch(lib, "ad_fused_conv_fwd_scratch", x.device, *dims)
     err = lib.ad_fused_conv_fwd(
         x.data_ptr(), w2.data_ptr(), _ptr(w3), _ptr(cvec), _ptr(gates),
-        out.data_ptr(), _ptr(diff), b, f, h, w, c, co, int(bool(silu_in)),
-        int(bool(with_ctx)), _DTYPES[x.dtype],
+        out.data_ptr(), _ptr(diff), scratch.data_ptr(), b, f, h, w, c, co,
+        int(bool(silu_in)), int(bool(with_ctx)), _DTYPES[x.dtype],
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, err, "fused conv forward")
     conv_fwd_launches += 1
     return out, diff
-
-
-def _dw_shares(b, f, h, w, c, co, with_ctx) -> int:
-    """Number of shares the (frame, pixel tile) units are dealt into for the
-    weight gradients: enough blocks to fill the card several times over,
-    never more shares than units."""
-    tiles = -(-h // 8) * -(-w // 8)
-    blocks = -(-c // 16) * -(-co // 32) * (3 if with_ctx else 1)
-    units = b * (f // 2 if with_ctx else f) * tiles
-    return max(1, min(units, 256, -(-1056 // blocks)))
 
 
 def _launch_conv_bwd(x, w2, w3, cvec, gates, gout, diff, out, silu_in, with_ctx,
@@ -295,25 +300,20 @@ def _launch_conv_bwd(x, w2, w3, cvec, gates, gout, diff, out, silu_in, with_ctx,
         _check("out", out, (b, f, h, w, co), dt, dev)
     else:
         w3 = gates = diff = out = None
-    kinds = 3 if with_ctx else 1
-    tiles = -(-h // 8) * -(-w // 8)
-    shares = _dw_shares(b, f, h, w, c, co, with_ctx)
     dx = torch.empty_like(x) if need_dx else None
     dw2 = torch.empty_like(w2)
     dw3 = torch.empty_like(w3) if with_ctx else None
     dcvec = torch.empty_like(cvec) if cvec is not None else None
     dgates = torch.empty_like(gates) if with_ctx else None
-    wt = torch.empty((kinds, 9, co, c), dtype=dt, device=dev)
-    dcv_part = (torch.empty((b, f, tiles, c), dtype=torch.float32, device=dev)
-                if cvec is not None else None)
-    dw_part = torch.empty((kinds, shares, 9, c, co), dtype=torch.float32, device=dev)
     lib = _build.load("fused_conv_bwd", _BWD_SIGNATURES)
+    scratch = _scratch(lib, "ad_fused_conv_bwd_scratch", dev, b, f, h, w, c, co,
+                       int(bool(with_ctx)), _DTYPES[dt])
     err = lib.ad_fused_conv_bwd(
         x.data_ptr(), w2.data_ptr(), _ptr(w3), _ptr(cvec), _ptr(gates),
         gout.data_ptr(), _ptr(diff), _ptr(out), _ptr(dx), dw2.data_ptr(), _ptr(dw3),
-        _ptr(dcvec), _ptr(dgates), wt.data_ptr(), _ptr(dcv_part), dw_part.data_ptr(),
-        b, f, h, w, c, co, int(bool(silu_in)), int(bool(with_ctx)), shares,
-        _DTYPES[dt], torch.cuda.current_stream(dev).cuda_stream)
+        _ptr(dcvec), _ptr(dgates), scratch.data_ptr(), b, f, h, w, c, co,
+        int(bool(silu_in)), int(bool(with_ctx)), _DTYPES[dt],
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, "fused conv backward")
     conv_bwd_launches += 1
     return dx, dw2, dw3, dcvec, dgates

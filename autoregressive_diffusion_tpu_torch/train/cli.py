@@ -48,8 +48,13 @@ TINY_CONFIG = dict(img_resolution=16, img_channels=4, model_channels=16,
 GYM_LOSS = EDM2LossConfig(P_mean=1.2, P_std=1.0, context_noise_reduction=0.5)
 # kernel-name fragments for the profile's groups
 ATTENTION_KERNELS = ("flash_attn_",)  # csrc/flash_attention_{fwd,bwd}.cu
-CONV_BWD_KERNELS = ("dx_kernel", "dw_kernel", "dw_finalize", "dcv_finalize", "dgates_kernel",
-                    "transpose_w_kernel")
+# csrc/fused_conv_fwd.cu: fp32 SIMT; bf16 prologue, weight packing, tensor-core GEMM
+CONV_FWD_KERNELS = ("fused_conv_fwd_kernel", "conv_fwd_prologue", "conv_fwd_pack_w",
+                    "conv_fwd_tc")
+# csrc/fused_conv_bwd.cu: fp32 SIMT, bf16 prologues and tensor-core GEMMs, shared finalizes
+CONV_BWD_KERNELS = ("transpose_w_kernel", "dx_kernel", "dw_kernel", "conv_bwd_prologue",
+                    "conv_bwd_grad_prologue", "conv_bwd_pack_w", "conv_bwd_dx_tc",
+                    "conv_bwd_dw_tc", "dw_finalize", "dcv_finalize", "dgates_kernel")
 MATMUL_KERNELS = ("gemm", "cutlass", "softmax", "bmm", "xmma")
 
 
@@ -108,6 +113,21 @@ def run_steps(state, train_step, images, cond, steps: int, seed: int = 0,
     return rows
 
 
+def kernel_group(name: str) -> str:
+    """The profile group of a device kernel or copy, by its name."""
+    if "Memcpy" in name:
+        return "memcpy"
+    if any(k in name for k in ATTENTION_KERNELS):
+        return "attention_kernels"
+    if any(k in name for k in CONV_FWD_KERNELS):
+        return "conv_forward"
+    if any(k in name for k in CONV_BWD_KERNELS):
+        return "conv_backward"
+    if any(k in name.lower() for k in MATMUL_KERNELS):
+        return "matmul_attention"
+    return "optimizer_elementwise_other"
+
+
 def profile_steps(state, train_step, images, cond, steps: int = 2, seed: int = 0,
                   trace_path=None) -> dict:
     """torch.profiler over `steps` DART train steps: wall time, device busy
@@ -136,18 +156,7 @@ def profile_steps(state, train_step, images, cond, steps: int = 2, seed: int = 0
     groups = {"conv_forward": 0.0, "conv_backward": 0.0, "attention_kernels": 0.0,
               "matmul_attention": 0.0, "memcpy": 0.0, "optimizer_elementwise_other": 0.0}
     for key, us in kernel_times(prof).items():
-        if "Memcpy" in key:
-            groups["memcpy"] += us
-        elif any(k in key for k in ATTENTION_KERNELS):
-            groups["attention_kernels"] += us
-        elif "fused_conv_fwd_kernel" in key:
-            groups["conv_forward"] += us
-        elif any(k in key for k in CONV_BWD_KERNELS):
-            groups["conv_backward"] += us
-        elif any(k in key.lower() for k in MATMUL_KERNELS):
-            groups["matmul_attention"] += us
-        else:
-            groups["optimizer_elementwise_other"] += us
+        groups[kernel_group(key)] += us
     return {"steps": steps, "wall_ms_per_step": w["wall_ms"],
             "device_busy_ms_per_step": w["device_busy_ms"],
             "device_idle_share": w["device_idle_share"],

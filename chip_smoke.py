@@ -30,10 +30,10 @@ Phases, each of which fails the run with a non-zero exit:
      attention-free Block shape of the gym model, fp32 (SIMT) and bf16
      (tensor cores), with the kernels' device time and wall time a call and
      the plain version's wall time. The wgmma/mma.sync and TMA/cp.async
-     instructions of every tensor-core kernel (flash, prefill, Block) are
-     counted in the machine code (cuobjdump; a kernel with no tensor-core
-     product or no asynchronous copy fails the run), and every kernel's
-     registers and spills are printed from the build;
+     instructions of every tensor-core kernel (flash, prefill, Block, the
+     train-mode conv) are counted in the machine code (cuobjdump; a kernel
+     with no tensor-core product or no asynchronous copy fails the run), and
+     every kernel's registers and spills are printed from the build;
   4. end to end against the plain versions: a small model and the
      full-width gym model on the card (kernels, fp32) agree with the same
      models on the CPU (plain versions) on a prefill and a cached decode step;
@@ -44,13 +44,16 @@ Phases, each of which fails the run with a non-zero exit:
      and read after; the counts must be 6 per prefill call for the
      attention kernel and 17 per denoiser call for the decode Block;
   6. the train-mode fused gated conv, forward and backward kernels, against
-     their plain version (out, dx, dw2, dw3, dcvec, dgates) in fp32 and bf16
-     at every distinct (H, C, Co, silu_in, has_cvec, with_ctx) of the gym
-     model's causal convs at batch 8, T=8, and at one odd shape (24x40,
-     C=9, T=3, batch 1), with times of the kernels, the plain version and
-     the unfused cuDNN path (F.conv2d in the working type plus elementwise
-     ops, forward and backward by autograd), which the port never calls;
-     and the kernel's fp32 weight gradient against a float64 reference;
+     their plain version (out, dx, dw2, dw3, dcvec, dgates) in fp32 (SIMT
+     kernels) and bf16 (tensor cores; run twice, bit for bit) at every
+     distinct (H, C, Co, silu_in, has_cvec, with_ctx) of the gym model's
+     causal convs at batch 8, T=8, and at one odd shape (24x40, C=9, T=3,
+     batch 1), with device times (device_ms) and wall times a call of the
+     forward and of the backward entry point, each on its own, and of the
+     unfused cuDNN path (F.conv2d in the working type plus elementwise ops;
+     its backward by autograd over a kept graph), which the port never
+     calls, beside the plain version's wall times; and the kernel's fp32
+     weight gradient against a float64 reference;
   7. the training path: a small fp32 model's one-step gradients on the card
      (conv and attention kernels) against the same model on the CPU (plain
      versions); then the full-width 46M gym model in a bf16 body, batch 8,
@@ -652,6 +655,12 @@ def conv_cost(b, f, h, w, c, co, has_cv, with_ctx, dtype):
 
 
 def conv_phase(fc, cfg, b=8, t=8):
+    """Kernels against the plain version at every distinct causal conv of
+    the model (batch 8, T=8) and the odd shapes, fp32 and bf16; bf16 also
+    run twice, bit for bit. Times: the forward and the backward entry point
+    each on its own, and the unfused cuDNN path's forward and its backward
+    (autograd over a kept graph), as device time (device_ms) and as wall
+    time a call; the plain version's as wall time."""
     calls = conv_calls(cfg)
     gym = sorted(set(s for _, s in calls), key=lambda s: (-s[0], s[1], s[2], s[3], s[4]))
     cases = [("gym", b, 2 * t if ctx else t, h, h, c, co, silu, cv, ctx)
@@ -677,8 +686,12 @@ def conv_phase(fc, cfg, b=8, t=8):
 
             got = run(fc.fused_gated_conv)
             want = run(fc.fused_gated_conv_plain)
+            repeat = None
+            if dtype == torch.bfloat16:
+                again = run(fc.fused_gated_conv)
+                repeat = all(a is None or torch.equal(a, r) for a, r in zip(got, again))
             torch.cuda.synchronize()
-            ok, errs, worst = True, {}, 0.0
+            ok, errs, worst = repeat is not False, {}, 0.0
             for name, gg, ww in zip(names, got, want):
                 if ww is None and gg is None:
                     continue
@@ -708,34 +721,50 @@ def conv_phase(fc, cfg, b=8, t=8):
                 errs[name] = (err, tol)
                 ok = ok and good and bool(torch.isfinite(gg).all())
             iters = 5
+            leaves = [None if a is None else a.detach().requires_grad_(True) for a in args]
+            need = [l for l in leaves if l is not None]
 
             def fwd_only(fn):
                 with torch.no_grad():
                     return fn(*args, silu, ctx)
 
-            ms_f = time_ms(lambda: fwd_only(fc.fused_gated_conv), iters, 1)
-            ms_fb = time_ms(lambda: run(fc.fused_gated_conv), iters, 1)
-            plain_f = time_ms(lambda: fwd_only(fc.fused_gated_conv_plain), iters, 1)
-            plain_fb = time_ms(lambda: run(fc.fused_gated_conv_plain), iters, 1)
-            unf_f = time_ms(lambda: fwd_only(unfused_cudnn_conv), iters, 1)
-            unf_fb = time_ms(lambda: run(unfused_cudnn_conv), iters, 1)
+            saved_out, saved_diff = fc._launch_conv_fwd(*args, silu, ctx, True)
+
+            def kernel_bwd():
+                return fc._launch_conv_bwd(*args, gout, saved_diff, saved_out, silu, ctx, True)
+
+            def graph_bwd(out):
+                return lambda: torch.autograd.grad(out, need, gout, retain_graph=True)
+
+            plain_out = fc.fused_gated_conv_plain(*leaves, silu, ctx)
+            unf_out = unfused_cudnn_conv(*leaves, silu, ctx)
+            r = dict(
+                fwd_ms=device_ms(lambda: fwd_only(fc.fused_gated_conv), iters, 1),
+                bwd_ms=device_ms(kernel_bwd, iters, 1),
+                unfused_fwd_ms=device_ms(lambda: fwd_only(unfused_cudnn_conv), iters, 1),
+                unfused_bwd_ms=device_ms(graph_bwd(unf_out), iters, 1),
+                fwd_wall_ms=time_ms(lambda: fwd_only(fc.fused_gated_conv), iters, 1),
+                bwd_wall_ms=time_ms(kernel_bwd, iters, 1),
+                unfused_fwd_wall_ms=time_ms(lambda: fwd_only(unfused_cudnn_conv), iters, 1),
+                unfused_bwd_wall_ms=time_ms(graph_bwd(unf_out), iters, 1),
+                plain_fwd_ms=time_ms(lambda: fwd_only(fc.fused_gated_conv_plain), iters, 1),
+                plain_bwd_ms=time_ms(graph_bwd(plain_out), iters, 1))
+            del plain_out, unf_out
             (ff, fb), (bf, bb_) = conv_cost(bb, f, h, w, c, co, has_cv, ctx, dtype)
             bound_f, by_f = bound(ff, fb, dtype)
             bound_b, by_b = bound(bf, bb_, dtype)
             key = (kind, bb, f, h, w, c, co, silu, has_cv, ctx, dname)
-            # backward time = (forward + backward under autograd) - forward
-            results[key] = dict(
-                ok=bool(ok), max_abs_err=worst, errs=errs,
-                fwd_ms=ms_f, bwd_ms=max(ms_fb - ms_f, 0.0), plain_fwd_ms=plain_f,
-                plain_bwd_ms=max(plain_fb - plain_f, 0.0), unfused_fwd_ms=unf_f,
-                unfused_bwd_ms=max(unf_fb - unf_f, 0.0), bound_fwd_ms=bound_f,
-                bound_bwd_ms=bound_b, bound_fwd_by=by_f, bound_bwd_by=by_b)
-            r = results[key]
+            results[key] = dict(ok=bool(ok), max_abs_err=worst, errs=errs, repeat=repeat, **r,
+                                bound_fwd_ms=bound_f, bound_bwd_ms=bound_b, bound_fwd_by=by_f,
+                                bound_bwd_by=by_b)
             detail = " ".join(f"{n}={e:.2e}/{tl:.1e}" for n, (e, tl) in errs.items())
             log(f"# conv {dname:8s} {kind} B={bb} F={f:2d} {h:2d}x{w:2d} C={c:3d} Co={co:3d} "
-                f"silu={int(silu)} cv={int(has_cv)} ctx={int(ctx)} ok={ok} {detail} | ms "
-                f"fwd={r['fwd_ms']:.3f} bwd={r['bwd_ms']:.3f} plain={plain_f:.3f}+"
-                f"{r['plain_bwd_ms']:.3f} unfused={unf_f:.3f}+{r['unfused_bwd_ms']:.3f} "
+                f"silu={int(silu)} cv={int(has_cv)} ctx={int(ctx)} ok={ok} repeat={repeat} "
+                f"{detail} | device ms fwd={r['fwd_ms']:.4f} bwd={r['bwd_ms']:.4f} "
+                f"unfused={r['unfused_fwd_ms']:.4f}+{r['unfused_bwd_ms']:.4f} | wall ms "
+                f"fwd={r['fwd_wall_ms']:.3f} bwd={r['bwd_wall_ms']:.3f} "
+                f"unfused={r['unfused_fwd_wall_ms']:.3f}+{r['unfused_bwd_wall_ms']:.3f} "
+                f"plain={r['plain_fwd_ms']:.3f}+{r['plain_bwd_ms']:.3f} | "
                 f"bound={bound_f:.4f}+{bound_b:.4f} ({by_f}, {by_b})")
     return calls, results
 
@@ -769,6 +798,46 @@ def dw_float64_check(fc):
     log(f"# conv dw2 fp32 against float64 (max|ref|={ref_max:.1f}): kernel err={err_k:.3e} "
         f"tol={tol:.3e} ok={ok}; plain version (cuDNN) err={err_p:.3e}")
     return ok, err_k, err_p
+
+
+def conv_kernel_rows(calls, conv_results, launches_cf, launches_cb):
+    """The `kernels` rows of the two conv kernels: sums over the causal convs
+    of one DART step (batch 8, T=8, bf16), logged with their per-shape means."""
+    rows = []
+    step_rows = [conv_results[("gym", 8, 16, h, h, c, co, silu, cv, True, "bfloat16")]
+                 for _, (h, c, co, silu, cv) in calls]
+    by_shape = {}
+    for (_, (h, c, co, _, _)), r in zip(calls, step_rows):
+        by_shape.setdefault((h, c, co), []).append(r)
+    for (h, c, co), rs in sorted(by_shape.items(), key=lambda kv: (-kv[0][0], kv[0][1:])):
+        mean = {k: sum(r[k] for r in rs) / len(rs) for k in rs[0] if k.endswith("_ms")}
+        log(f"# conv-step {h:2d}x{h:2d} C={c:3d} Co={co:3d} calls={len(rs):2d} ms a call: "
+            f"device fwd={mean['fwd_ms']:.4f} bwd={mean['bwd_ms']:.4f} "
+            f"unfused={mean['unfused_fwd_ms']:.4f}+{mean['unfused_bwd_ms']:.4f}; "
+            f"wall plain={mean['plain_fwd_ms']:.3f}+{mean['plain_bwd_ms']:.3f}; "
+            f"bound={mean['bound_fwd_ms']:.4f}+{mean['bound_bwd_ms']:.4f}")
+    for which, src, line, n_launch in (("fwd", "fused_conv_fwd.cu", 784, launches_cf),
+                                       ("bwd", "fused_conv_bwd.cu", 879, launches_cb)):
+        by = [r[f"bound_{which}_by"] for r in step_rows]
+        rows.append(dict(
+            name=f"fused_conv_{which}", route="cuda", source=f"{PKG}/csrc/{src}",
+            replaces=f"autoregressive_diffusion_tpu/ops/fused_conv.py:{line}",
+            launches=n_launch, max_abs_err=max(r["max_abs_err"] for r in step_rows),
+            ms=sum(r[f"{which}_ms"] for r in step_rows),
+            plain_ms=sum(r[f"plain_{which}_ms"] for r in step_rows),
+            bound_ms=sum(r[f"bound_{which}_ms"] for r in step_rows),
+            bound_by="operations" if by.count("operations") > len(by) / 2 else "bytes",
+            library_ms=sum(r[f"unfused_{which}_ms"] for r in step_rows),
+            ok=all(r["ok"] for r in conv_results.values())))
+    share = " ".join(f"{r['name']} {r['ms']:.3f} vs library {r['library_ms']:.3f} ms "
+                     f"({r['bound_ms'] / r['ms']:.1%} of the bound);" for r in rows)
+    log(f"# fused_conv_fwd/bwd ms/plain_ms/bound_ms/library_ms are sums over the {len(calls)} "
+        f"causal convs of one DART step (batch 8, T=8, bf16); ms and library_ms are device "
+        f"times, the library being the unfused cuDNN path (F.conv2d in bf16 plus elementwise "
+        f"ops, its backward by autograd), which the port never calls: {share} wall a step: "
+        f"fwd {sum(r['fwd_wall_ms'] for r in step_rows):.3f}, bwd "
+        f"{sum(r['bwd_wall_ms'] for r in step_rows):.3f} ms")
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -1171,8 +1240,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None, help="also write the detailed results here")
     ap.add_argument("--kernels-only", action="store_true",
-                    help="stop after phase 3 (the kernel checks and times), printing no "
-                         "result line: for timing kernels, not for proving the port")
+                    help="run phases 1-3 and 6 (the kernel checks and times) and stop, "
+                         "printing no result line: for timing kernels, not for proving the port")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -1215,16 +1284,20 @@ def main(argv=None):
 
     failures = []
     sass = {}
-    for name in ("flash_attention_fwd", "flash_attention_bwd", "decode_block"):
+    for name in ("flash_attention_fwd", "flash_attention_bwd", "decode_block", "fused_conv_fwd",
+                 "fused_conv_bwd"):
         sass[name] = sass_counts(_build._lib_path(name))
         if sass[name] is None:
             log(f"# sass {name}: cuobjdump not found, instructions not counted")
             continue
+        if not sass[name]:
+            failures.append(f"{name}: no tensor-core kernel in its machine code")
         for fn, (n_wgmma, n_mma, n_tma, n_cpa) in sass[name].items():
             log(f"# sass {name}: {fn}: {n_wgmma} wgmma (HGMMA), {n_mma} mma.sync (HMMA), "
                 f"{n_tma} TMA loads (UTMALDG), {n_cpa} cp.async (LDGSTS)")
             # the flash kernels (prefill's ring kind among them) are wgmma fed by
-            # TMA, the decode Block's mma.sync fed by cp.async
+            # TMA; the decode Block's and the train-mode conv's mma.sync fed by
+            # cp.async (csrc/conv_tc.cuh says why not wgmma)
             if not ((n_wgmma and n_tma) if name.startswith("flash") else (n_mma and n_cpa)):
                 failures.append(f"{fn}: no tensor-core product or no asynchronous copy in its "
                                 f"machine code")
@@ -1237,8 +1310,11 @@ def main(argv=None):
     shapes, block_results = decode_block_phase(fc, gym)
     failures += [f"decode block {k}" for k, r in block_results.items() if not r["ok"]]
     if args.kernels_only:
-        log(f"# kernels-only: stopped after phase 3, {time.perf_counter() - t_start:.1f} s, "
-            f"{len(failures)} failures {failures}")
+        calls, conv_results = conv_phase(fc, gym)
+        failures += [f"fused conv {k}" for k, r in conv_results.items() if not r["ok"]]
+        conv_kernel_rows(calls, conv_results, 0, 0)
+        log(f"# kernels-only: stopped after phases 3 and 6, {time.perf_counter() - t_start:.1f} "
+            f"s, {len(failures)} failures {failures}")
         return 1 if failures else 0
 
     tiny = dict(img_resolution=16, img_channels=4, model_channels=16, channel_mult=(1, 2),
@@ -1339,35 +1415,7 @@ def main(argv=None):
                        > len(per_call) / 2 else "bytes"),
              library_ms=None, ok=all(r["ok"] for r in block_results.values())),
     ]
-    # the conv kernels: sums over the causal convs of one DART step (batch 8, T=8, bf16)
-    step_rows = [conv_results[("gym", 8, 16, h, h, c, co, silu, cv, True, "bfloat16")]
-                 for _, (h, c, co, silu, cv) in calls]
-    by_shape = {}
-    for (_, (h, c, co, _, _)), r in zip(calls, step_rows):
-        by_shape.setdefault((h, c, co), []).append(r)
-    for (h, c, co), rs in sorted(by_shape.items(), key=lambda kv: (-kv[0][0], kv[0][1:])):
-        mean = {k: sum(r[k] for r in rs) / len(rs) for k in rs[0] if k.endswith("_ms")}
-        log(f"# conv-step {h:2d}x{h:2d} C={c:3d} Co={co:3d} calls={len(rs):2d} ms a call: "
-            f"fwd={mean['fwd_ms']:.2f} bwd={mean['bwd_ms']:.2f} "
-            f"plain={mean['plain_fwd_ms']:.2f}+{mean['plain_bwd_ms']:.2f} "
-            f"unfused={mean['unfused_fwd_ms']:.2f}+{mean['unfused_bwd_ms']:.2f} "
-            f"bound={mean['bound_fwd_ms']:.3f}+{mean['bound_bwd_ms']:.3f}")
-    for which, src, line, n_launch in (("fwd", "fused_conv_fwd.cu", 784, launches_cf),
-                                       ("bwd", "fused_conv_bwd.cu", 879, launches_cb)):
-        by = [r[f"bound_{which}_by"] for r in step_rows]
-        kernels.append(dict(
-            name=f"fused_conv_{which}", route="cuda", source=f"{PKG}/csrc/{src}",
-            replaces=f"autoregressive_diffusion_tpu/ops/fused_conv.py:{line}",
-            launches=n_launch, max_abs_err=max(r["max_abs_err"] for r in step_rows),
-            ms=sum(r[f"{which}_ms"] for r in step_rows),
-            plain_ms=sum(r[f"plain_{which}_ms"] for r in step_rows),
-            bound_ms=sum(r[f"bound_{which}_ms"] for r in step_rows),
-            bound_by="operations" if by.count("operations") > len(by) / 2 else "bytes",
-            library_ms=None, ok=all(r["ok"] for r in conv_results.values())))
-    log(f"# fused_conv_fwd/bwd ms/plain_ms/bound_ms are sums over the {len(calls)} causal "
-        f"convs of one DART step (batch 8, T=8, bf16); the unfused cuDNN path takes "
-        f"{sum(r['unfused_fwd_ms'] for r in step_rows):.2f} + "
-        f"{sum(r['unfused_bwd_ms'] for r in step_rows):.2f} ms for the same convs")
+    kernels += conv_kernel_rows(calls, conv_results, launches_cf, launches_cb)
     # the flash kernels: sums over the attention layers of one DART step
     # (batch 8, T=8, bf16); launches over the rollout and the four steps
     dart_step = attention_calls(gym, 8, 8, False)

@@ -270,6 +270,80 @@ def test_fused_conv_kernels_match_plain(cuda, dtype, shape, silu_in, has_cv, wit
             assert rel_err(got, want) <= 1e-2, name
 
 
+GYM_CONV_SHAPES = [  # b, 2T (or F), h, w, c, co
+    (2, 4, 64, 64, 9, 32),    # the gym stem: C = 9, padded to 16 channels in bf16
+    (2, 4, 64, 64, 32, 8),    # the gym out conv: Co = 8, a quarter of a 32-output tile
+    (1, 4, 16, 16, 384, 96)]  # 24 16-channel chunks, a ragged 64-output tile
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", GYM_CONV_SHAPES)
+@pytest.mark.parametrize("silu_in,has_cv,with_ctx", [(True, True, True), (False, False, True),
+                                                     (False, False, False)])
+def test_fused_conv_kernels_match_plain_at_gym_widths(cuda, dtype, shape, silu_in, has_cv,
+                                                      with_ctx):
+    """The stem's and the out conv's channel counts at the gym's 64x64 and
+    a deep 16x16 conv, held to chip_smoke.py's rules: fp32 as above; bf16
+    at std(diff)/std(ref) <= 1e-2 for every output, and dgates, where that
+    fails, to 4 * 2^-9 * sqrt(n) of max |diff| (at these widths and scales
+    the terms of a frame's dgates sum are larger than 1, and the kernel and
+    the plain version each stand about as far from an fp32 reference)."""
+    b, t2, h, w, c, co = shape
+    if not with_ctx:
+        t2 -= 1
+    args, gout = conv_inputs(cuda, dtype, b, t2, h, w, c, co, has_cv, with_ctx)
+    out_k, grads_k = conv_run(fc.fused_gated_conv, args, gout, silu_in, with_ctx)
+    out_p, grads_p = conv_run(fc.fused_gated_conv_plain, args, gout, silu_in, with_ctx)
+    torch.cuda.synchronize()
+    assert set(grads_k) == set(grads_p)
+    for name, got, want in [("out", out_k, out_p)] + [(n, grads_k[n], grads_p[n])
+                                                      for n in grads_p]:
+        assert got.shape == want.shape and got.dtype == want.dtype, name
+        assert bool(torch.isfinite(got).all()), name
+        if dtype == torch.float32:
+            tol = 2e-5 * max(1.0, float(want.abs().max()))
+            assert float((got - want).abs().max()) <= tol, name
+        elif rel_err(got, want) > 1e-2:
+            assert name == "dgates", name
+            tol = 4 * 2 ** -9 * (h * w * co) ** 0.5
+            assert float((got - want).abs().max()) <= tol, name
+
+
+@pytest.mark.cuda
+def test_fused_conv_bf16_kernels_repeat_bit_for_bit(cuda):
+    """The bf16 forward and backward, run twice on the same inputs, give the
+    same bits: the weight gradients' shares and dcvec's tiles are summed in
+    a fixed order, without atomics."""
+    for shape, ctx in [((2, 6, 16, 16, 32, 32), True), ((2, 4, 8, 8, 96, 64), True),
+                       ((1, 3, 24, 40, 9, 32), False)]:
+        b, t2, h, w, c, co = shape
+        args, gout = conv_inputs(cuda, torch.bfloat16, b, t2, h, w, c, co, True, ctx, seed=9)
+        out1, g1 = conv_run(fc.fused_gated_conv, args, gout, True, ctx)
+        out2, g2 = conv_run(fc.fused_gated_conv, args, gout, True, ctx)
+        torch.cuda.synchronize()
+        assert torch.equal(out1, out2), shape
+        for name in g1:
+            assert torch.equal(g1[name], g2[name]), (shape, name)
+
+
+@pytest.mark.cuda
+def test_fused_conv_takes_misaligned_bf16_views(cuda):
+    """No TMA reads the caller's tensors: the bf16 prologues read x, cvec and
+    gout element by element and write the aligned buffers the products read,
+    so views that start 2 bytes past a 16-byte boundary are taken as they
+    are and give the aligned inputs' results bit for bit."""
+    args, gout = conv_inputs(cuda, torch.bfloat16, 1, 4, 16, 16, 32, 32, True, True, seed=10)
+    moved = [a if a is None or a.dtype != torch.bfloat16 else misaligned(a) for a in args]
+    assert moved[0].data_ptr() % 16 and moved[0].is_contiguous()
+    out_a, g_a = conv_run(fc.fused_gated_conv, args, gout, True, True)
+    out_m, g_m = conv_run(fc.fused_gated_conv, moved, misaligned(gout), True, True)
+    torch.cuda.synchronize()
+    assert torch.equal(out_a, out_m)
+    for name in g_a:
+        assert torch.equal(g_a[name], g_m[name]), name
+
+
 @pytest.mark.cuda
 def test_fused_conv_backward_is_the_forwards_derivative(cuda):
     """Directional finite differences of the forward KERNEL against the

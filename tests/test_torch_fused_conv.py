@@ -129,3 +129,157 @@ def test_bf16_rounds_where_the_kernels_round():
     want = ((y2d + (torch.cat([ctx, ctx], 1) - y2d) * g)
             * torch.rsqrt((1 - g) ** 2 + g ** 2)).bfloat16()
     assert torch.equal(out, want)
+
+
+# ---------------------------------------------------------------------------
+# The bf16 kernels' decomposition (csrc/conv_tc.cuh, fused_conv_fwd.cu,
+# fused_conv_bwd.cu), written out in torch: the padded buffer with its two
+# ones frames, each tap a shifted read of the zero-padded halo, the
+# transposed convolution of dx on flipped weights, dcvec as per-tile partial
+# sums, dw as per-share partial sums of (frame, tile) units summed in share
+# order, and dy2d / dctx rounded to bf16 where the kernel rounds them.
+
+def _mp_dsilu(z):
+    """mp_silu's derivative (conv_tile.cuh::mp_dsilu)."""
+    s = torch.sigmoid(z)
+    return s * (1 + z * (1 - s)) / 0.596
+
+
+def _taps(buf, wk, h, w):
+    """sum over the 9 taps of buf shifted by the tap (buf zero-padded by one
+    pixel: (..., h + 2, w + 2, K)) times wk[tap] (3, 3, K, N)."""
+    return sum(buf[..., dy:dy + h, dx:dx + w, :] @ wk[dy, dx] for dy in range(3) for dx in range(3))
+
+
+def _pad(t, k):
+    """(..., h, w, c) -> (..., h + 2, w + 2, k): the halo's zero pixels and
+    channels up to k."""
+    return torch.nn.functional.pad(t, (0, k - t.shape[-1], 1, 1, 1, 1))
+
+
+def _tiles(h, w):
+    return [(y, x) for y in range(0, h, 8) for x in range(0, w, 8)]
+
+
+def _dw_shares(a_frames, d_frames, h, w, shares):
+    """sum_p a(p + tap) d(p) as the weight-gradient kernel sums it: units
+    (frame, 8x8 tile) dealt to `shares` shares (u = s, s + S, ...), a partial
+    sum a share, then the partials in share order. a_frames (n, h + 2, w + 2,
+    Cp) padded, d_frames (n, h, w, Co) -> (3, 3, Cp, Co)."""
+    tiles = _tiles(h, w)
+    units = [(fr, t) for fr in range(a_frames.shape[0]) for t in tiles]
+    parts = []
+    for s in range(shares):
+        part = torch.zeros((3, 3, a_frames.shape[-1], d_frames.shape[-1]))
+        for fr, (y0, x0) in units[s::shares]:
+            ny, nx = min(8, h - y0), min(8, w - x0)
+            d = d_frames[fr, y0:y0 + ny, x0:x0 + nx].reshape(-1, d_frames.shape[-1])
+            for dy in range(3):
+                for dx in range(3):
+                    a = a_frames[fr, y0 + dy:y0 + dy + ny, x0 + dx:x0 + dx + nx]
+                    part[dy, dx] += a.reshape(-1, a.shape[-1]).T @ d
+        parts.append(part)
+    total = parts[0]
+    for p in parts[1:]:
+        total = total + p
+    return total
+
+
+def kernel_decomposition(x, w2, w3, cvec, gates, gout, silu_in, with_ctx, round_grads,
+                         shares=3):
+    """(out, dx, dw2, dw3, dcvec, dgates) the way the bf16 kernels compute
+    them, in fp32 throughout but for dy2d and dctx, which are rounded to
+    bf16 when round_grads is set."""
+    b, f, h, w, c = x.shape
+    co, t = w2.shape[-1], f // 2
+    cp, cop = -(-c // 16) * 16, -(-co // 16) * 16
+    nones = 2 if with_ctx else 0
+    z = x * cvec[:, :, None, None, :] if cvec is not None else x
+    a = fc._silu_f32(z) if silu_in else z
+    # the forward prologue's buffer (B, F + nones, H + 2, W + 2, Cp): ones frames first
+    buf = _pad(torch.cat([torch.ones((b, nones, h, w, c)), a], 1), cp)
+    buf[:, :nones, :, :, c:] = 0.0
+
+    def packed(wk, kin, kout):  # (3, 3, C, Co) padded to (3, 3, kin, kout)
+        return torch.nn.functional.pad(wk, (0, kout - wk.shape[-1], 0, kin - wk.shape[-2]))
+
+    y2d = _taps(buf[:, nones:], packed(w2, cp, cop), h, w)[..., :co]
+    g = r = diff = None
+    if with_ctx:
+        # ctx[t] reads buffer frames t and t + 1: h[t] and h[t + 1]
+        ctx = (_taps(buf[:, :t], packed(w3[0], cp, cop), h, w)
+               + _taps(buf[:, 1:t + 1], packed(w3[1], cp, cop), h, w))[..., :co]
+        g = gates[:, :, None, None, None]
+        r = torch.rsqrt((1 - g) ** 2 + g ** 2)
+        diff = torch.cat([ctx, ctx], 1) - y2d
+        out = (y2d + diff * g) * r
+        dy2d = gout * (1 - g) * r
+        dctx = gout[:, :t] * (g * r)[:, :t] + gout[:, t:] * (g * r)[:, t:]
+    else:
+        out, dy2d, dctx = y2d, gout, None
+    if round_grads and with_ctx:
+        dy2d, dctx = dy2d.bfloat16().float(), dctx.bfloat16().float()
+
+    def flipped(wk):  # the dx convolution's weights: taps flipped, channel axes swapped
+        return packed(wk.flip(0, 1).transpose(-1, -2), cop, c)
+
+    dy_pad = _pad(dy2d, cop)
+    da = _taps(dy_pad, flipped(w2), h, w)
+    if with_ctx:
+        dctx_pad = _pad(dctx, cop)
+        clean = torch.zeros_like(da[:, :t])
+        # clean frame t is h[t + 2]: ctx[t + 1] read it through w3[1], ctx[t + 2] through w3[0]
+        clean[:, :t - 1] += _taps(dctx_pad[:, 1:], flipped(w3[1]), h, w)
+        clean[:, :t - 2] += _taps(dctx_pad[:, 2:], flipped(w3[0]), h, w)
+        da = da + torch.cat([clean, torch.zeros_like(clean)], 1)
+    dz = da * (_mp_dsilu(z) if silu_in else 1.0)
+    dx = dz * cvec[:, :, None, None, :] if cvec is not None else dz
+    dcvec = None
+    if cvec is not None:  # per-tile partial sums, then the tiles in order
+        prod = dz * x
+        dcvec = sum(prod[:, :, y0:y0 + 8, x0:x0 + 8].sum((2, 3)) for y0, x0 in _tiles(h, w))
+    # weight gradients: kind 0 every frame's (a[f], dy2d[f]); w3[k] (h[t + k], dctx[t])
+    dw2 = _dw_shares(buf[:, nones:].reshape(b * f, h + 2, w + 2, cp), dy2d.reshape(b * f, h, w, co),
+                     h, w, shares)[:, :, :c]
+    dw3 = dgates = None
+    if with_ctx:
+        dw3 = torch.stack([_dw_shares(buf[:, k:t + k].reshape(b * t, h + 2, w + 2, cp),
+                                      dctx.reshape(b * t, h, w, co), h, w, shares)[:, :, :c]
+                           for k in (0, 1)])
+        dgates = (gout * (diff * r - out * (2 * g - 1) * r * r)).sum((2, 3, 4))
+    return out, dx, dw2, dw3, dcvec, dgates
+
+
+@pytest.mark.parametrize("silu_in,has_cv,with_ctx", [(True, True, True), (False, False, True),
+                                                     (True, True, False)])
+def test_kernel_decomposition_matches_jax_reference(silu_in, has_cv, with_ctx):
+    """The decomposition, fp32 with the bf16 rounding of dy2d / dctx off,
+    against the JAX oracle and jax.grad at TOL; with the rounding on, within
+    bf16's precision of it (std(diff)/std(ref) <= 1e-2, the card's bf16
+    tolerance)."""
+    inp = make_inputs(seed=4)
+    t = {n: torch.from_numpy(inp[n]) for n in NAMES}
+    gout = torch.from_numpy(inp["probe"])
+    cv = t["cvec"] if has_cv else None
+    got = kernel_decomposition(t["x"], t["w2"], t["w3"], cv, t["gates"], gout, silu_in,
+                               with_ctx, round_grads=False)
+
+    def loss(x, w2, w3, cvec, gates):
+        o = jax_conv(jfc.fused_gated_conv_reference, x, w2, w3,
+                     cvec if has_cv else None, gates, silu_in, with_ctx)
+        return jnp.sum(o * inp["probe"]), o
+
+    args = [jnp.asarray(inp[n]) for n in NAMES]
+    (_, out_j), grads_j = jax.value_and_grad(loss, argnums=(0, 1, 2, 3, 4),
+                                             has_aux=True)(*args)
+    want = [np.asarray(out_j)] + [np.asarray(gj) for gj in grads_j]
+    rounded = kernel_decomposition(t["x"], t["w2"], t["w3"], cv, t["gates"], gout, silu_in,
+                                   with_ctx, round_grads=True)
+    for name, g, r, wj in zip(("out",) + NAMES, got, rounded, want):
+        if g is None:  # an unread argument: no gradient reaches it
+            assert float(np.abs(wj).max()) == 0.0, name
+            continue
+        assert g.shape == wj.shape, name
+        assert np.abs(g.numpy() - wj).max() <= TOL, name
+        rel = np.std(r.numpy() - wj) / np.std(wj)
+        assert rel <= 1e-2, (name, rel)

@@ -7,6 +7,9 @@ gradients); the host-side helpers (schedule, EMA exponents, Fourier loss
 weight, forced weight norm) at 1e-6; and microbatch accumulation against
 the full batch. One jitted JAX function per mode gives the output, the loss
 and the gradients, so the file pays two JAX compiles."""
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -24,6 +27,7 @@ from autoregressive_diffusion_tpu_torch.train import (
     EDM2LossConfig, MultiNoiseState, create_train_state, edm2_loss, exp_to_std,
     fit_and_broadcast, forced_weight_norm, fourier_eval, learning_rate_schedule,
     make_optimizer, make_train_step, power_function_beta, std_to_exp, top_losses)
+from autoregressive_diffusion_tpu_torch.train import cli
 from autoregressive_diffusion_tpu_torch.utils import load_jax_variables, to_jax_names
 
 TOL = 3e-4
@@ -292,3 +296,18 @@ def test_train_step_microbatch_matches_full(models):
     assert len(moved) > 30
     for n, p in s_full.params.items():
         assert torch.equal(s_full.ema[0][n], p.detach()), n
+
+
+@pytest.mark.parametrize("source,group", [("fused_conv_fwd.cu", "conv_forward"),
+                                          ("fused_conv_bwd.cu", "conv_backward")])
+def test_profile_groups_hold_every_conv_kernel(source, group):
+    """Every kernel of the conv sources lands in its conv group of `train
+    --profile` (the groups match kernels by name, so a renamed or new kernel
+    would otherwise count as elementwise work)."""
+    text = (Path(cli.__file__).parents[1] / "csrc" / source).read_text()
+    names = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)", text)
+    assert len(names) >= 4, names
+    for name in names:
+        # as the profiler names it: demangled, with namespaces, template arguments and parameters
+        key = f"void (anonymous namespace)::tc::{name}<64, true>(int, float const*)"
+        assert cli.kernel_group(key) == group, name
