@@ -357,18 +357,20 @@ class Precond(nn.Module):
 
 
 @torch.no_grad()
-def init_weights(model: nn.Module, seed: int) -> nn.Module:
+def init_weights(model: nn.Module, seed: int, gains: float = 1.0) -> nn.Module:
     """Seeded random weights with the JAX package's init distributions: raw
     weights N(0, 1), Fourier freqs 2*pi*N(0, 1) and phases 2*pi*U[0, 1),
     gating offsets 0, mults (1.5, -0.5), min/max gating -5 -- except the
-    emb_gain and out_gain scalars, which are 1 where the JAX init has 0: a
-    zero out_gain hides the UNet body from the output, and a random model is
-    only a useful check when its output depends on every layer."""
+    emb_gain and out_gain scalars, which are `gains`: 1 by default where the
+    JAX init has 0, since a zero out_gain hides the UNet body from the
+    output and a random model is only a useful check when its output
+    depends on every layer; gains=0 is the JAX init, from which training
+    starts."""
     g = torch.Generator(device="cpu").manual_seed(seed)
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
         if leaf in ("emb_gain", "out_gain"):
-            v = torch.ones(p.shape)
+            v = torch.full(p.shape, float(gains))
         elif leaf == "offset":
             v = torch.zeros(p.shape)
         elif leaf == "mult":

@@ -1,1 +1,2 @@
-from .sampler import edm_sampler, generate, karras_schedule
+from .sampler import (edm_sampler, generate, karras_schedule, make_sampler_callback,
+                      mse_probe, prefill_fresh)

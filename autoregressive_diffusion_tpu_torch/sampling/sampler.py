@@ -6,6 +6,7 @@ num_steps-1 Euler+Heun steps (a Python loop where JAX has lax.scan), then a
 final Euler step whose denoiser call writes the finished frame into the
 cache. Noise comes from an explicit torch.Generator on the model's device;
 `x_init` injects the initial noise (already scaled by sigma_max) instead.
+`make_sampler_callback` is the training loop's eval-time feedback.
 """
 from __future__ import annotations
 
@@ -108,3 +109,77 @@ def generate(model, cache, n_frames: int, shape, conditioning=None,
                                      generator=generator, **sampler_kwargs)
         frames.append(x)
     return torch.cat(frames, dim=1), cache
+
+
+@torch.no_grad()
+def prefill_fresh(model, frames: torch.Tensor, sigma: float = 0.05) -> dict:
+    """A fresh cache for `model` with `frames` (b, t, h, w, c) prefilled at
+    noise level `sigma`, without conditioning."""
+    from ..models.cache import init_cache
+
+    b, t = frames.shape[:2]
+    cache = init_cache(model, b, device=frames.device)
+    sig = torch.full((b, t), float(sigma), dtype=torch.float32, device=frames.device)
+    _, cache = model(frames, sig, None, cache=cache, update_cache=True)
+    return cache
+
+
+@torch.no_grad()
+def mse_probe(model, latents: torch.Tensor, generator: Optional[torch.Generator] = None,
+              num_steps: int = 32, n_context: int = 4, sigma_prefill: float = 0.05,
+              S_churn: float = 20.0, x_init: Optional[torch.Tensor] = None):
+    """The callback's first half: prefill the first n_context frames of
+    latents[:1] (at most t - 1) into a fresh cache, then denoise the next
+    frame from sigma_max 3 (rho 7, S_churn) with per-step MSE against it,
+    the cache left as it was; x_init, if given, is the initial noise.
+    Returns (x, mses, mses_pred)."""
+    lat = latents[:1]
+    b, t_lat, h, w, c = lat.shape
+    n_ctx = min(n_context, t_lat - 1)
+    cache = prefill_fresh(model, lat[:, :n_ctx], sigma_prefill)
+    x, mses, mses_pred, _ = edm_sampler(
+        model, cache, (b, 1, h, w, c), generator=generator, num_steps=num_steps,
+        sigma_max=3.0, rho=7.0, S_churn=S_churn, update_cache=False,
+        target=lat[:, n_ctx:n_ctx + 1], x_init=x_init)
+    return x, mses, mses_pred
+
+
+def make_sampler_callback(model, num_mse_steps: int = 32, n_context: int = 4,
+                          n_prefill: int = 2, n_rollout: int = 4,
+                          sigma_prefill: float = 0.05):
+    """Eval-time training feedback, the counterpart of the JAX package's
+    make_sampler_callback. Returns callback(latents, generator=None) ->
+    (mse_steps, mse_pred, rollout_latents) on the first sample of latents
+    (b, t, h, w, c):
+      1. mse_probe: prefill n_context frames at sigma_prefill, denoise the
+         next frame in num_mse_steps steps (sigma_max 3, rho 7, S_churn 20)
+         with per-step MSE against it (numpy arrays);
+      2. prefill n_prefill frames into a fresh cache and roll out n_rollout
+         frames (sigma_max 80, rho 7, S_churn 20), returning the prefill and
+         generated latents (1, n_prefill + n_rollout, h, w, c) for the
+         caller's VAE decode.
+    `model` is the training model: the callback runs it in eval mode with
+    no autograd graph and leaves its train/eval flag as it found it."""
+
+    @torch.no_grad()
+    def callback(latents: torch.Tensor, generator: Optional[torch.Generator] = None):
+        was_training = model.training
+        model.eval()
+        try:
+            _, mses, mses_pred = mse_probe(model, latents, generator, num_mse_steps,
+                                           n_context, sigma_prefill)
+            lat = latents[:1]
+            b, t_lat, h, w, c = lat.shape
+            pre = lat[:, :min(n_prefill, t_lat)]
+            cache = prefill_fresh(model, pre, sigma_prefill)
+            frames = [pre.float()]
+            for _ in range(n_rollout):
+                x, _, _, cache = edm_sampler(model, cache, (b, 1, h, w, c),
+                                             generator=generator, num_steps=num_mse_steps,
+                                             sigma_max=80.0, rho=7.0, S_churn=20.0)
+                frames.append(x)
+            return mses.cpu().numpy(), mses_pred.cpu().numpy(), torch.cat(frames, dim=1)
+        finally:
+            model.train(was_training)
+
+    return callback

@@ -4,6 +4,7 @@ from .loss_weight import (MultiNoiseState, fit_and_broadcast, fourier_basis,
 from .ema import (ema_update, exp_to_std, init_ema, power_function_beta,
                   solve_posthoc_coefficients, std_to_exp)
 from .optim import ClippedAdamW, forced_weight_norm, global_norm, make_optimizer
-from .train_state import TrainState, create_train_state, make_train_step
+from .train_state import (TrainState, create_train_state, make_replay_train_step,
+                          make_scanned_train_step, make_train_step, step_seed)
 from .cli import build_trainer, run_steps, synthetic_batch
 from .quantize import normalize_weights, quantize_variables, quantize_weight, quantized_config

@@ -39,7 +39,7 @@ from ..parallel import check_replica_consistency, create_mesh, seq_slice
 from ..utils.profiling import kernel_times, window_summary
 from .loss import EDM2LossConfig
 from .optim import make_optimizer
-from .train_state import create_train_state, make_train_step
+from .train_state import create_train_state, make_train_step, step_seed
 
 DTYPES = {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
           "fp32": torch.float32, "float32": torch.float32}
@@ -98,7 +98,7 @@ def run_steps(state, train_step, images, cond, steps: int, seed: int = 0,
         just_2d = just_2d_every > 0 and (i + 1) % just_2d_every == 0
         _sync(dev)
         t0 = time.perf_counter()
-        state, m = train_step(state, images, cond, seed * 1_000_003 + i, just_2d=just_2d)
+        state, m = train_step(state, images, cond, step_seed(seed, i), just_2d=just_2d)
         loss = float(m["loss"])  # device -> host: the step is done
         _sync(dev)
         dt = time.perf_counter() - t0
@@ -145,7 +145,7 @@ def profile_steps(state, train_step, images, cond, steps: int = 2, seed: int = 0
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            state, m = train_step(state, images, cond, seed * 1_000_003 + state.step)
+            state, m = train_step(state, images, cond, step_seed(seed, state.step))
         float(m["loss"])
         _sync(dev)
         wall = time.perf_counter() - t0

@@ -10,9 +10,9 @@ PRNG key; the two draw different numbers from the same seed.
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Optional
 
+import numpy as np
 import torch
 
 from .loss_weight import fourier_eval
@@ -132,11 +132,14 @@ def top_losses(errors: torch.Tensor, fraction: float) -> torch.Tensor:
 
 def learning_rate_schedule(step, ref_lr: float = 1e-2, ref_step: float = 7e4,
                            rampup_steps: float = 1e3) -> float:
-    """EDM2 inverse-sqrt decay + linear rampup, for a host step count."""
-    step = float(step)
-    lr = float(ref_lr)
+    """EDM2 inverse-sqrt decay + linear rampup, for a host step count. The
+    arithmetic is fp32, as in the JAX package, so both give the same
+    learning rate to the last bit."""
+    f32 = np.float32
+    step = f32(step)
+    lr = f32(ref_lr)
     if ref_step > 0:
-        lr = lr / math.sqrt(max(step / ref_step, 1.0))
+        lr = lr / np.sqrt(np.maximum(step / f32(ref_step), f32(1.0)))
     if rampup_steps > 0:
-        lr = lr * min(step / rampup_steps, 1.0)
-    return lr
+        lr = lr * np.minimum(step / f32(rampup_steps), f32(1.0))
+    return float(lr)

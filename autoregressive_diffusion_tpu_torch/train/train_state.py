@@ -13,6 +13,11 @@ model under the sequence-parallel context, the gradients are summed over
 all ranks before the clip (so its norm is the global one), and the
 optimizer, the forced weight norm and the EMA then run identically on
 every rank. The metrics are global.
+
+`make_scanned_train_step` and `make_replay_train_step` run G steps a call,
+where the JAX package scans them on the device to hide its host link: here
+they are plain loops of the step, the replay step gathering each step's
+batch from rings on the card (data/replay.py::DeviceReplay).
 """
 from __future__ import annotations
 
@@ -129,3 +134,68 @@ def make_train_step(loss_cfg: EDM2LossConfig, tx: ClippedAdamW, batch_size: int,
         return state, metrics
 
     return train_step
+
+
+def step_seed(seed: int, step: int) -> int:
+    """The seed of optimizer step `step` of a run seeded with `seed`."""
+    return int(seed) * 1_000_003 + int(step)
+
+
+def _stacked(rows, mean_unweighted: bool) -> dict:
+    """Per-step metrics stacked as the JAX package's scans stack them."""
+    loss = torch.stack([torch.as_tensor(m["loss"]) for m in rows])
+    unw = torch.stack([torch.as_tensor(m["unweighted"]) for m in rows])
+    return dict(loss=loss.mean(), loss_per_step=loss,
+                unweighted=unw.mean() if mean_unweighted else unw,
+                grad_norm=rows[-1]["grad_norm"],
+                sigma=torch.cat([m["sigma"] for m in rows]),
+                losses=torch.cat([m["losses"] for m in rows]))
+
+
+def make_scanned_train_step(loss_cfg: EDM2LossConfig, tx: ClippedAdamW, batch_size: int,
+                            microbatch: Optional[int] = None):
+    """Returns scanned(state, images, conditioning, seed, just_2d=False,
+    sigma=None, noise=None) -> (state, metrics): G = images.shape[0] train
+    steps on images[j] (b, t, h, w, c) and conditioning[j], step j seeded
+    with step_seed(seed, state.step) (sigma and noise, if given, are
+    (G, b, ...)). Metrics: loss (mean), loss_per_step (G,), unweighted
+    (mean), grad_norm (the last step's), sigma and losses (G * b, t)."""
+    step = make_train_step(loss_cfg, tx, batch_size, microbatch)
+
+    def scanned(state: TrainState, images, conditioning, seed: int, just_2d: bool = False,
+                sigma=None, noise=None):
+        rows = []
+        for j in range(images.shape[0]):
+            state, m = step(state, images[j], conditioning[j], step_seed(seed, state.step),
+                            just_2d, None if sigma is None else sigma[j],
+                            None if noise is None else noise[j])
+            rows.append(m)
+        return state, _stacked(rows, mean_unweighted=True)
+
+    return scanned
+
+
+def make_replay_train_step(loss_cfg: EDM2LossConfig, tx: ClippedAdamW, batch_size: int,
+                           microbatch: Optional[int] = None):
+    """Returns replay_step(state, buf_images, buf_cond, idx, seed,
+    just_2d=False, sigma=None, noise=None) -> (state, metrics): idx.shape[0]
+    train steps, step j on the batch buf_images[idx[j]], buf_cond[idx[j]],
+    gathered on the rings' device (index_select), seeded as in
+    make_scanned_train_step. idx (G, b) is the one thing that crosses to the
+    device. Metrics as make_scanned_train_step's, but unweighted is (G,)."""
+    step = make_train_step(loss_cfg, tx, batch_size, microbatch)
+
+    def replay_step(state: TrainState, buf_images, buf_cond, idx, seed: int,
+                    just_2d: bool = False, sigma=None, noise=None):
+        idx = torch.as_tensor(idx).to(device=buf_images.device, dtype=torch.long)
+        rows = []
+        for j in range(idx.shape[0]):
+            images = buf_images.index_select(0, idx[j])
+            cond = buf_cond.index_select(0, idx[j]).long()
+            state, m = step(state, images, cond, step_seed(seed, state.step), just_2d,
+                            None if sigma is None else sigma[j],
+                            None if noise is None else noise[j])
+            rows.append(m)
+        return state, _stacked(rows, mean_unweighted=False)
+
+    return replay_step

@@ -6,10 +6,15 @@ and layouts (HWIO / DHWIO / (in, out) weights, scalar gains and gating
 parameters as 0-dim tensors), so the bridge flattens the tree with "." and
 drops the collection name: params/unet/enc_64x64_conv/gating/offset becomes
 unet.enc_64x64_conv.gating.offset. A JAX TrainState's params, buffers,
-EMA trees and loss-weight coefficients go into the port's TrainState the
-same way (the optimizer moments are not bridged: the state starts from a
-fresh optimizer), and `to_jax_names` is the inverse for parameters and
-gradients, so that the two sides can be compared leaf by leaf. This module
+EMA trees, loss-weight coefficients, step and AdamW moments go into the
+port's TrainState the same way (`load_jax_train_state`), and
+`train_state_tree` is the inverse: the port's TrainState as the JAX-named
+tree of numpy arrays that the train-state checkpoints hold
+(utils/checkpoint.save_train_state), read back by `load_train_state_tree`.
+The AdamW moments are optax's mu and nu under the parameters' names, and
+its count is torch's per-parameter step (equal for every parameter).
+`to_jax_names` is the flat inverse for parameters and gradients, so that
+the two sides can be compared leaf by leaf. This module
 takes plain numpy arrays and never imports JAX.
 
 Leaves keep their meaning: int8 leaves (the `w_q` of int8 decode weights)
@@ -83,21 +88,32 @@ def load_jax_variables(model: torch.nn.Module, variables) -> torch.nn.Module:
     return _load_state(model, state_from_jax(variables), "weight bridge")
 
 
+def _nest(named) -> dict:
+    """{dotted name: leaf} -> the nested tree of the JAX package's names."""
+    out = {}
+    for name, leaf in named:
+        node = out
+        *path, last = name.split(".")
+        for key in path:
+            node = node.setdefault(key, {})
+        node[last] = leaf
+    return out
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A numpy copy of t that no later in-place update of t reaches (int8
+    stays int8, the rest fp32)."""
+    t = t.detach()
+    return t.to("cpu", dtype=t.dtype if t.dtype == torch.int8 else torch.float32,
+                copy=True).numpy()
+
+
 def jax_variables(model: torch.nn.Module) -> dict:
     """The inverse of load_jax_variables: {"params": tree, "buffers": tree}
     of numpy copies of `model`'s parameters and buffers (int8 stays int8,
     the rest fp32), under the JAX package's names."""
-    out = {"params": {}, "buffers": {}}
-    named = [("params", model.named_parameters()), ("buffers", model.named_buffers())]
-    for collection, items in named:
-        for name, t in items:
-            node = out[collection]
-            *path, leaf = name.split(".")
-            for key in path:
-                node = node.setdefault(key, {})
-            t = t.detach().cpu()
-            node[leaf] = (t if t.dtype == torch.int8 else t.float()).numpy().copy()
-    return out
+    return {"params": _nest((n, _host(t)) for n, t in model.named_parameters()),
+            "buffers": _nest((n, _host(t)) for n, t in model.named_buffers())}
 
 
 @torch.no_grad()
@@ -163,11 +179,14 @@ def vae_from_bundle(path, device="cuda"):
 
 
 @torch.no_grad()
-def load_jax_train_state(state, params, buffers, ema=None, coefs=None, step: int = 0):
+def load_jax_train_state(state, params, buffers, ema=None, coefs=None, step: int = 0,
+                         opt_state=None):
     """Copy a JAX TrainState's leaves (numpy trees) into the port's
     TrainState `state`, in place: params and buffers into the model, each
     EMA tree into the matching EMA copy (default: copies of params), coefs
-    (7, 1) and the step count."""
+    (7, 1), the step count and, if given, the AdamW state
+    {"mu": tree, "nu": tree, "count": n} (optax's ScaleByAdamState; without
+    it the optimizer keeps its own state)."""
     load_jax_variables(state.model, {"params": params, "buffers": buffers})
     ema = tuple(ema) if ema is not None else (params,) * len(state.ema)
     if len(ema) != len(state.ema):
@@ -180,8 +199,76 @@ def load_jax_train_state(state, params, buffers, ema=None, coefs=None, step: int
             own[name].copy_(torch.from_numpy(np.array(val, dtype=np.float32)))
     if coefs is not None:
         state.coefs.copy_(torch.from_numpy(np.array(coefs, dtype=np.float32)))
+    if opt_state is not None:
+        _load_adamw(state, opt_state["mu"], opt_state["nu"], int(np.asarray(opt_state["count"])))
     state.step = int(step)
     return state
+
+
+def _named_opt_params(state):
+    """[(name, parameter)] in the optimizer's order."""
+    name_of = {id(p): n for n, p in state.model.named_parameters()}
+    return [(name_of[id(p)], p) for g in state.opt_state.param_groups for p in g["params"]]
+
+
+def _adamw_tree(state) -> dict:
+    """The AdamW state as optax names it: mu, nu (trees of the parameters'
+    names) and count, the number of updates taken."""
+    opt = state.opt_state
+    mu, nu, counts = [], [], set()
+    for name, p in _named_opt_params(state):
+        st = opt.state.get(p, {})
+        if st:
+            counts.add(int(float(st["step"])))
+            mu.append((name, _host(st["exp_avg"])))
+            nu.append((name, _host(st["exp_avg_sq"])))
+        else:
+            counts.add(0)
+            zero = np.zeros(tuple(p.shape), np.float32)
+            mu.append((name, zero))
+            nu.append((name, zero.copy()))
+    if len(counts) != 1:
+        raise ValueError(f"train bridge: AdamW step counts differ between parameters: {counts}")
+    return {"mu": _nest(mu), "nu": _nest(nu), "count": np.asarray(counts.pop(), np.int32)}
+
+
+def _load_adamw(state, mu_tree, nu_tree, count: int) -> None:
+    """Set the optimizer's moments and step count from optax-named trees;
+    the bias correction then goes on from update `count`."""
+    opt = state.opt_state
+    named = _named_opt_params(state)
+    mu, nu = dict(_flatten(mu_tree)), dict(_flatten(nu_tree))
+    if set(mu) != {n for n, _ in named} or set(nu) != set(mu):
+        raise KeyError("train bridge: AdamW moment names differ from the model's")
+    sd = opt.state_dict()
+    sd["state"] = {} if count == 0 else {
+        i: {"step": torch.tensor(float(count), dtype=torch.float32),
+            "exp_avg": torch.from_numpy(np.array(mu[n], dtype=np.float32)),
+            "exp_avg_sq": torch.from_numpy(np.array(nu[n], dtype=np.float32))}
+        for i, (n, _) in enumerate(named)}
+    opt.load_state_dict(sd)  # moves the moments to each parameter's device
+
+
+def train_state_tree(state) -> dict:
+    """The port's TrainState as host numpy copies under the JAX package's
+    names: {"step", "params", "buffers", "ema": {"0": tree, ...},
+    "ema_stds", "opt_state": {"mu", "nu", "count"}, "coefs"}."""
+    return {"step": np.asarray(state.step, np.int64), **jax_variables(state.model),
+            "ema": {str(i): _nest((n, _host(t)) for n, t in e.items())
+                    for i, e in enumerate(state.ema)},
+            "ema_stds": np.asarray(state.ema_stds, np.float64),
+            "opt_state": _adamw_tree(state),
+            "coefs": _host(state.coefs)}
+
+
+def load_train_state_tree(state, tree) -> None:
+    """The inverse of train_state_tree, into `state` in place."""
+    stds = tuple(float(x) for x in np.asarray(tree["ema_stds"]).reshape(-1))
+    if stds != tuple(float(x) for x in state.ema_stds):
+        raise ValueError(f"train bridge: EMA stds {stds} != the state's {state.ema_stds}")
+    load_jax_train_state(state, tree["params"], tree.get("buffers", {}),
+                         [tree["ema"][str(i)] for i in range(len(stds))], tree["coefs"],
+                         int(np.asarray(tree["step"])), opt_state=tree["opt_state"])
 
 
 def to_jax_names(named) -> dict:

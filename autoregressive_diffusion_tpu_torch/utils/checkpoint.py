@@ -1,8 +1,8 @@
 """Kwargs-bundle model checkpoints (`.ad` files), read and written without
 JAX, flax or msgpack.
 
-Counterpart of the first half of autoregressive_diffusion_tpu/utils/
-checkpoint.py (`save_model` / `load_model`). A bundle is a msgpack map with
+Counterpart of autoregressive_diffusion_tpu/utils/checkpoint.py.
+The first half is `save_model` / `load_model`. A bundle is a msgpack map with
 bytes keys: b"kwargs" (the model's constructor knobs as JSON), b"variables"
 and, optionally, b"extra", each of the last two a bin blob that holds flax's
 `serialization.to_bytes` of a tree: a map with str keys whose leaves are
@@ -19,14 +19,27 @@ The file is read once into a buffer, and every array leaf is a numpy view
 of that buffer: the only copy of a leaf is the one its consumer makes.
 numpy has no bfloat16, so a bfloat16 leaf comes back as a `BFloat16Leaf`
 holding its uint16 bit patterns; `np.asarray` widens it exactly to fp32.
-Remote (s3://, gs://) paths and the Orbax train-state half of the JAX module
-are not carried over.
+Remote (s3://, gs://) paths are not carried over.
+
+The second half is resumable train-state checkpoints (`save_train_state`,
+`restore_train_state`, `latest_step`, `wait_for_pending_saves`). A
+checkpoint is a directory `step_{step:09d}/` under the checkpoint directory,
+holding one msgpack file, `train_state.msgpack`: a map {"state", "extra"}
+written by this module's writer. "state" is the TrainState as a tree of
+arrays under the JAX package's names (utils/bridge.train_state_tree:
+params, buffers, both EMA trees, the AdamW moments and count, coefs, step);
+"extra" is a schema-free map of arrays (the loss history). The JAX package
+writes its train states with Orbax (tensorstore, OCDBT); this format is not
+Orbax's, and neither side reads the other's directories.
 """
 from __future__ import annotations
 
 import json
 import os
+import re
+import shutil
 import struct
+import threading
 from pathlib import Path
 from typing import Any, Dict, Optional
 
@@ -340,3 +353,126 @@ def _check_leaf_sizes(tree):
 
 def _itemsize(v) -> int:
     return 2 if isinstance(v, BFloat16Leaf) else v.dtype.itemsize
+
+
+# ---------------------------------------------------------------------------
+# train-state checkpoints
+
+TRAIN_STATE_FILE = "train_state.msgpack"
+_STEP_DIR = re.compile(r"step_(\d+)")
+_pending: Optional[threading.Thread] = None
+_pending_error: list = []
+
+
+def _write_msgpack(path: Path, tree) -> None:
+    """Write a tree of arrays as one msgpack object, part by part."""
+    w = _Writer()
+    state = _state_dict(tree)
+    _check_leaf_sizes(state)
+    w.value(state)
+    with open(path, "wb") as f:
+        for part in w.parts:
+            f.write(part)
+
+
+def _read_msgpack(path: Path):
+    size = os.path.getsize(path)
+    buf = bytearray(size)
+    with open(path, "rb") as f:
+        if f.readinto(buf) != size:
+            raise ValueError(f"{path}: short read")
+    return _decode(memoryview(buf), str(path))
+
+
+def _step_dirs(ckpt_dir) -> list:
+    d = Path(os.fspath(ckpt_dir))
+    if not d.is_dir():
+        return []
+    return sorted(int(m.group(1)) for n in os.listdir(d) if (m := _STEP_DIR.fullmatch(n)))
+
+
+def wait_for_pending_saves() -> None:
+    """Join the checkpoint write in flight, if any, and raise its error.
+    save/restore_train_state and latest_step call it first; call it before
+    the process exits when the last save used block=False."""
+    global _pending
+    if _pending is not None:
+        _pending.join()
+        _pending = None
+    if _pending_error:
+        raise RuntimeError("a background checkpoint write failed") from _pending_error.pop()
+
+
+def save_train_state(ckpt_dir, step: int, state, extra: Optional[dict] = None,
+                     keep: Optional[int] = None, block: bool = True) -> Path:
+    """Write `state` (a train/train_state.TrainState) to
+    ckpt_dir/step_{step:09d}/, replacing a checkpoint of the same step.
+    `extra` is a flat map of array-likes (a list becomes a 1-d array), read
+    back by restore_train_state as numpy arrays.
+
+    `keep` -- if given, only the newest `keep` step directories are kept
+    after a successful write.
+
+    `block=False` -- copy the state to the host now (a copy even of CPU
+    tensors, which the next in-place train step would otherwise change under
+    the writer), then encode and write on a background thread, so training
+    goes on at once. At most one write is in flight: a new save waits for
+    the last. Keep block=True where the process exits next. The write goes
+    to a temporary directory renamed into place, so a crash leaves either
+    the old checkpoint or the new one."""
+    from .bridge import train_state_tree
+
+    wait_for_pending_saves()
+    root = Path(os.fspath(ckpt_dir)).absolute()
+    final = root / f"step_{step:09d}"
+    tree = {"state": train_state_tree(state),
+            "extra": {str(k): np.asarray(v) for k, v in (extra or {}).items()}}
+
+    def write():
+        root.mkdir(parents=True, exist_ok=True)
+        tmp = root / f".step_{step:09d}.{os.getpid()}.tmp"
+        shutil.rmtree(tmp, ignore_errors=True)
+        tmp.mkdir()
+        _write_msgpack(tmp / TRAIN_STATE_FILE, tree)
+        if final.exists():
+            shutil.rmtree(final)
+        os.replace(tmp, final)
+        if keep is not None and keep > 0:
+            for s in _step_dirs(root)[:-keep]:
+                shutil.rmtree(root / f"step_{s:09d}", ignore_errors=True)
+
+    if block:
+        write()
+    else:
+        def run():
+            try:
+                write()
+            except BaseException as e:  # re-raised by wait_for_pending_saves
+                _pending_error.append(e)
+
+        global _pending
+        _pending = threading.Thread(target=run, name=f"ckpt-write-{step}")
+        _pending.start()
+    return final
+
+
+def restore_train_state(ckpt_dir, step: int, state, extra_template=None):
+    """Load checkpoint `step` into `state` (a TrainState built as the saved
+    one was: same model config, optimizer and EMA stds), in place. Returns
+    (state, extra), extra a dict of numpy arrays. `extra_template` is
+    accepted, as in the JAX package, and ignored: extra restores without
+    a schema."""
+    from .bridge import load_train_state_tree
+
+    wait_for_pending_saves()
+    path = Path(os.fspath(ckpt_dir)) / f"step_{step:09d}" / TRAIN_STATE_FILE
+    tree = _read_msgpack(path)
+    load_train_state_tree(state, tree["state"])
+    return state, {k: np.array(v) for k, v in tree.get("extra", {}).items()}
+
+
+def latest_step(ckpt_dir) -> Optional[int]:
+    """The newest checkpoint's step under ckpt_dir, or None."""
+    wait_for_pending_saves()
+    steps = _step_dirs(ckpt_dir)
+    return steps[-1] if steps else None

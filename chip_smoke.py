@@ -94,7 +94,27 @@ Phases, each of which fails the run with a non-zero exit:
      does not meet (PERF.md); (d) the generated latents decoded to
      (1, 8, 256, 256, 3) uint8 frames by the trained VAE
      (saved_models/vae_lunar_lander.ad) on the card against the CPU: float
-     pixels within std(diff) 3e-4, uint8 within 1.
+     pixels within std(diff) 3e-4, uint8 within 1;
+ 10. the gym training path (gym_train.py, the slice's main path) at full
+     width in a directory under build/ that it removes: (a) 16 synthetic
+     clips (16, 32, 256, 256, 3) uint8 encoded by the trained VAE to
+     (16, 8, 64, 64, 8) latents, one clip card against CPU within
+     std(diff) 3e-4; (b) eight steps through gym_train's loop, batch 16 in
+     microbatches of 8, on streamed clips with the LR schedule of --steps 8,
+     each step's launches held to twice a batch-8 step's (phase 7), the
+     dashboard at step 4 (coefs refitted, finite and changed; the sampler
+     callback's 315 denoiser calls and 2 prefills held to 17 Blocks a call
+     and 6 prefill launches a prefill; the rollout decoded to a PNG; the
+     model left in training mode), checkpoints at steps 4 and 8; (c) four
+     steps, a refit and a save, a restore into a freshly built trainer and
+     four more steps against eight straight steps: every leaf of the train
+     state bit for bit (else within 1e-6 of its largest value, reported);
+     (d) --replay 32 --replay-device for four steps: one just_2d dispatch,
+     one of three steps, the rings on the card, under a profile the
+     3-step dispatch's host-to-card bytes below 1% of one batch; (e)
+     export_ema of the 0.050 EMA as bf16, every leaf equal to the state's
+     EMA rounded to bf16 in numpy, served by generate --unet --vae: finite
+     latents and a uint8 PNG. Its launches join the kernels line.
 Then it prints the `kernels` JSON line, the nvidia-smi line and, last,
 {"ok": true, "device": {...}}. It exits non-zero, printing no result, when
 no CUDA device is present or the port's package is not beside it.
@@ -1511,6 +1531,408 @@ def sp_path_phase(build_trainer, n_convs):
 
 
 # ---------------------------------------------------------------------------
+# phase 10: the gym training path (gym_train.py), end to end
+
+GYM_T = 8           # latent frames a clip: 32 frames at time compression 4
+GYM_FRAME = 256     # the gym path's frame size
+TOL_RESUME = 1e-6   # max |diff| / max |leaf| where a resumed run is not bit for bit
+
+
+def htod_bytes(fn):
+    """(result of fn(), host-to-card bytes, copies, kernels) of one call of
+    fn, from a torch.profiler trace of the card's activity."""
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        path = Path(d) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text()).get("traceEvents", [])
+    copies = [e for e in events if "HtoD" in str(e.get("name", ""))]
+    kernels = sum(e.get("cat") == "kernel" for e in events)
+    return out, sum(int(e.get("args", {}).get("bytes", 0)) for e in copies), len(copies), kernels
+
+
+def np_bf16_bits(x):
+    """bfloat16 bits of fp32 values, rounded to nearest even in numpy (no
+    NaNs): an implementation independent of torch's cast."""
+    import numpy as np
+    u = np.ascontiguousarray(x, np.float32).view(np.uint32).astype(np.uint64)
+    return ((u + 0x7FFF + ((u >> 16) & 1)) >> 16).astype(np.uint16).reshape(np.shape(x))
+
+
+def tree_diff(a, b, prefix=""):
+    """(leaves, leaves not bit for bit equal, worst max|diff|/max|leaf|) of
+    two trees of numpy arrays with the same keys."""
+    import numpy as np
+    n, unequal, worst = 0, [], 0.0
+    for k in a:
+        if isinstance(a[k], dict):
+            m, u, w = tree_diff(a[k], b[k], f"{prefix}{k}/")
+            n, unequal, worst = n + m, unequal + u, max(worst, w)
+            continue
+        x, y = np.asarray(a[k]), np.asarray(b[k])
+        n += 1
+        if x.shape != y.shape or not np.array_equal(x, y):
+            unequal.append(prefix + k)
+            if x.shape == y.shape and x.size:
+                d = np.abs(x.astype(np.float64) - y.astype(np.float64)).max()
+                worst = max(worst, float(d / max(np.abs(y).max(), 1e-30)))
+            else:
+                worst = float("inf")
+    return n, unequal, worst
+
+
+def gym_phase(fa, fc, n_blocks, frame_size=GYM_FRAME, extra_args=()):
+    """The gym training path through gym_train.py's functions, at full
+    width, in a directory under build/ that is removed afterwards:
+    (a) 16 synthetic clips of 32 frames (frame_size px) encoded by the
+    trained VAE on the card, one clip held against the CPU; (b) eight steps
+    at batch 16 in microbatches of 8 through the training loop on streamed
+    clips (data and encode inside the loop), the dashboard at step 4
+    (coefs refitted, sampler callback, rollout decoded to a PNG),
+    checkpoints at steps 4 and 8, every step's launches held to twice a
+    batch-8 step's; (c) four steps on the encoded batch, refit, save,
+    restore into a freshly built trainer, four more, against eight straight
+    steps: params, EMA, moments, counts and coefs; (d) --replay 32
+    --replay-device for four steps: one just_2d dispatch, then one of three
+    steps, the rings on the card and only the index matrix crossing;
+    (e) export_ema of the 0.050 EMA as a bf16 bundle, read back against the
+    state's EMA rounded to bf16, and served by generate --unet.
+    `frame_size` and `extra_args` (gym_train flags) shrink it for a
+    rehearsal on the CPU."""
+    import contextlib
+    import io
+    import numpy as np
+    from autoregressive_diffusion_tpu_torch import export_ema, generate, gym_train
+    from autoregressive_diffusion_tpu_torch.data import SyntheticVideoGenerator, batched
+    from autoregressive_diffusion_tpu_torch.models.attention import (FrameAttention,
+                                                                     VideoAttention)
+    from autoregressive_diffusion_tpu_torch.models.vae import frames_to_latents
+    from autoregressive_diffusion_tpu_torch.utils import (load_model, restore_train_state,
+                                                          save_train_state, train_state_tree,
+                                                          vae_from_bundle)
+
+    failures, summary = [], {}
+    work = ROOT / "build" / f"gym_phase_{int(time.time() * 1e3)}"
+    ck, img = work / "ckpt", work / "images"
+    base = ["--vae", str(ROOT / VAE_BUNDLE), "--device", DEV, "--synthetic",
+            "--ckpt-dir", str(ck), "--out-dir", str(img), *extra_args]
+    args = gym_train.parse_args(base + ["--steps", "8", "--dashboard-every", "4",
+                                        "--ckpt-every", "4"])
+    b, mb = args.batch, args.micro_batch
+
+    def counts():
+        return dict(conv_fwd=fc.conv_fwd_launches, conv_bwd=fc.conv_bwd_launches,
+                    block=fc.launches, prefill=fa.launches,
+                    **{n.removesuffix("_launches"): getattr(fa, n) for n in FLASH_COUNTERS})
+
+    def zero_counts():
+        fc.conv_fwd_launches = fc.conv_bwd_launches = fc.launches = fa.launches = 0
+        zero_flash_counts(fa)
+
+    def delta(c0):
+        return {k: v - c0[k] for k, v in counts().items()}
+
+    try:
+        zero_counts()  # the phase's launches: read at its end
+        # (a) data and encode
+        tr = gym_train.build_trainer(args, frame_size=frame_size)
+        cfg = tr.unet_cfg
+        res = cfg.img_resolution
+        unet_name = f"unet_{tr.n_params // 10 ** 6}M"
+        gen16 = SyntheticVideoGenerator(state_size=32, frame_size=frame_size, time_compression=4,
+                                        training_examples=16, seed=0)
+        frames, actions, _ = next(batched(gen16, b))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        enc_ms = []
+        for _ in range(2):  # cold, then warm
+            t0 = time.perf_counter()
+            lat = tr.encode(frames)
+            torch.cuda.synchronize()
+            enc_ms.append((time.perf_counter() - t0) * 1e3)
+        enc_peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        vae_cpu, _ = vae_from_bundle(str(ROOT / VAE_BUNDLE), "cpu")
+        lat_cpu = frames_to_latents(vae_cpu, torch.from_numpy(frames[:1]), 0.0, args.vae_std)
+        enc_err = float((lat[:1].cpu() - lat_cpu).std())
+        want_shape = (b, GYM_T, res, res, cfg.img_channels)
+        ok = (tuple(lat.shape) == want_shape and bool(torch.isfinite(lat).all())
+              and enc_err <= TOL_E2E)
+        log(f"# gym data: {frames.shape} {frames.dtype} ({frames.nbytes / 1e6:.1f} MB) -> latents "
+            f"{tuple(lat.shape)} (want {want_shape}); encode {enc_ms[0]:.1f} ms cold, "
+            f"{enc_ms[1]:.1f} ms warm ({b // mb} VAE calls of {mb} clips), peak {enc_peak:.1f} "
+            f"MB; one clip card vs CPU std(diff)={enc_err:.2e} tol={TOL_E2E:.0e} ok={ok}")
+        if not ok:
+            failures.append("gym encode: shape, finiteness or card against CPU")
+        summary.update(encode_ms=enc_ms, encode_peak_mb=enc_peak, encode_err=enc_err)
+
+        # (b) eight steps through the training loop, dashboard, checkpoints
+        model = tr.state.model
+        n_video = sum(isinstance(m, VideoAttention) for m in model.modules())
+        n_frame = sum(isinstance(m, FrameAttention) for m in model.modules())
+        n_convs = len(conv_calls(cfg))
+        micro = b // mb
+        want_step = {False: dict(conv_fwd=micro * n_convs, conv_bwd=micro * n_convs,
+                                 dart_fwd=micro * n_video, dart_bwd=micro * n_video,
+                                 full_fwd=micro * n_frame, full_bwd=micro * n_frame),
+                     True: dict(conv_fwd=micro * n_convs, conv_bwd=micro * n_convs,
+                                dart_fwd=0, dart_bwd=0, full_fwd=micro * (n_video + n_frame),
+                                full_bwd=micro * (n_video + n_frame))}
+        rows, mark = [], {}
+        dash, ckpts = {}, []
+        coefs0 = tr.state.coefs.clone()
+        orig_dashboard, orig_checkpoint = tr.dashboard, tr.checkpoint
+
+        def dashboard(i, latents):
+            torch.cuda.synchronize()
+            c0, t0 = counts(), time.perf_counter()
+            out = orig_dashboard(i, latents)
+            torch.cuda.synchronize()
+            dash.update(out, step=i, seconds=time.perf_counter() - t0, launches=delta(c0),
+                        coefs=tr.state.coefs.detach().cpu().clone())
+            mark["t"], mark["c"] = time.perf_counter(), counts()
+            return out
+
+        def checkpoint(i, block=False):
+            t0 = time.perf_counter()
+            out = orig_checkpoint(i, block)
+            ckpts.append(dict(step=i, state_step=tr.state.step, block=block,
+                              foreground_s=time.perf_counter() - t0))
+            mark["t"], mark["c"] = time.perf_counter(), counts()
+            return out
+
+        def on_step(i, m):
+            loss = float(m["loss"])  # the step is done
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            d = delta(mark["c"])
+            row = dict(step=i, just_2d=i % 4 == 0, loss=loss, lr=tr.lrs[i],
+                       ms=(now - mark["t"]) * 1e3, launches={k: d[k] for k in want_step[True]})
+            row["samples_per_sec"] = b * 1e3 / row["ms"]
+            rows.append(row)
+            log(f"# gym step {i} {'just_2d' if row['just_2d'] else 'dart':7s} loss={loss:.4f} "
+                f"lr={row['lr']:.6f} {row['ms']:.1f} ms {row['samples_per_sec']:.2f} samples/s "
+                f"(next batch + encode + step) launches {row['launches']} "
+                f"(want {want_step[row['just_2d']]})")
+            if row["launches"] != want_step[row["just_2d"]]:
+                failures.append(f"gym step {i}: launches {row['launches']}")
+            if not np.isfinite(loss):
+                failures.append(f"gym step {i}: loss not finite")
+            mark["t"], mark["c"] = time.perf_counter(), counts()
+
+        tr.dashboard, tr.checkpoint = dashboard, checkpoint
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mark["t"], mark["c"] = time.perf_counter(), counts()
+        reached = gym_train.train_loop(tr, gym_train.stream(tr, gym_train.make_generator(tr)),
+                                       on_step)
+        train_peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        if reached != 8 or [r["step"] for r in rows] != list(range(8)):
+            failures.append(f"gym loop reached step {reached}, rows {[r['step'] for r in rows]}")
+        lr_ok = all(r["lr"] == gym_train.learning_rate_schedule(r["step"], args.ref_lr, 8 / 50,
+                                                                 8 / 50) for r in rows)
+        dart = [r for r in rows[1:] if not r["just_2d"]]
+        loop_ms = sum(r["ms"] for r in dart) / len(dart)
+        log(f"# gym loop: 8 steps, batch {b} in microbatches of {mb}, T={GYM_T}, {res}x{res}x"
+            f"{cfg.img_channels} latents from {frame_size}-px clips: DART step {loop_ms:.1f} ms "
+            f"({b * 1e3 / loop_ms:.3f} samples/s, data and encode inside, steps after the "
+            f"first), peak {train_peak:.1f} MB, lr from the schedule {lr_ok}, "
+            f"{len(tr.losses)} losses kept")
+        if not lr_ok or len(tr.losses) != 8:
+            failures.append("gym loop: learning rates or loss history")
+        cb_calls = (2 * 32 - 1) * 5  # the MSE probe and four rollout frames, 32 steps each
+        want_dash = dict(block=n_blocks * cb_calls, prefill=2 * n_video,
+                         full_fwd=n_frame * (cb_calls + 2))
+        got_dash = {k: dash.get("launches", {}).get(k) for k in want_dash}
+        coefs = dash.get("coefs", coefs0.cpu())
+        coefs_ok = bool(torch.isfinite(coefs).all()) and not torch.equal(coefs, coefs0.cpu())
+        png = Path(dash.get("png", img / "none.png"))
+        png_ok = png.exists() and png.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
+        mse = dash.get("mse_steps", np.zeros(0))
+        log(f"# gym dashboard at step {dash.get('step')}: {dash.get('seconds', 0):.2f} s, "
+            f"launches {got_dash} (want {want_dash}: {n_blocks} Blocks x {cb_calls} calls, "
+            f"{n_video} video layers x 2 prefills, {n_frame} frame layers x {cb_calls + 2} "
+            f"model calls), coefs finite and refitted {coefs_ok} "
+            f"({coefs.reshape(-1).numpy().round(4).tolist()}), mse_steps first/last "
+            f"{float(mse[0]) if len(mse) else None}/{float(mse[-1]) if len(mse) else None} "
+            f"({len(mse)} steps), png {png.name} {png.stat().st_size if png_ok else 0} B "
+            f"training mode kept {model.training}")
+        if got_dash != want_dash or not coefs_ok or not png_ok or len(mse) != 32 \
+                or not np.isfinite(mse).all() or not model.training:
+            failures.append("gym dashboard")
+        sizes = {p.name: sum(f.stat().st_size for f in p.iterdir()) / 2 ** 20
+                 for p in ck.iterdir() if p.is_dir()}
+        log(f"# gym checkpoints: {[(c['step'], c['state_step'], c['block'], round(c['foreground_s'], 3)) for c in ckpts]} "
+            f"(loop step, state step, blocking, foreground s); on disk {sizes} MB")
+        if sorted(sizes) != ["step_000000005", "step_000000008"]:
+            failures.append(f"gym checkpoints {sorted(sizes)}")
+        summary.update(rows=rows, loop_dart_ms=loop_ms, loop_samples_per_sec=b * 1e3 / loop_ms,
+                       train_peak_mb=train_peak, ckpt_mb=sizes, checkpoints=ckpts,
+                       dashboard=dict(seconds=dash.get("seconds"), launches=got_dash,
+                                      mse_steps=[float(x) for x in mse]))
+        ema_tree = {n: t.detach().cpu().clone() for n, t in tr.state.ema[0].items()}
+        ema_step = tr.state.step
+        tr.dashboard, tr.checkpoint = orig_dashboard, orig_checkpoint
+        del tr, model
+        torch.cuda.empty_cache()
+
+        # (c) resume: 4 steps, refit, save, restore fresh, 4 steps == 8 straight steps
+        acts = torch.as_tensor(actions)
+        args_c = gym_train.parse_args(base + ["--steps", "8", "--ckpt-dir", str(work / "resume")])
+        step_ms = []
+
+        def steps(t, first, last):
+            for i in range(first, last):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                m = t.step(i, lat, acts)
+                float(m["loss"])
+                torch.cuda.synchronize()
+                step_ms.append((i, (time.perf_counter() - t0) * 1e3))
+            t.flush()
+
+        def refit(t):
+            t.state.coefs.copy_(torch.from_numpy(t.noise_state.fit()))
+
+        straight = gym_train.build_trainer(args_c, frame_size=frame_size)
+        steps(straight, 0, 4)
+        refit(straight)
+        steps(straight, 4, 8)
+        want_tree = train_state_tree(straight.state)
+        del straight
+        torch.cuda.empty_cache()
+        first = gym_train.build_trainer(args_c, frame_size=frame_size)
+        steps(first, 0, 4)
+        refit(first)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = save_train_state(args_c.ckpt_dir, first.state.step, first.state,
+                                {"losses": first.losses}, block=True)
+        save_s = time.perf_counter() - t0
+        ckpt_mb = sum(f.stat().st_size for f in path.iterdir()) / 2 ** 20
+        del first
+        torch.cuda.empty_cache()
+        second = gym_train.build_trainer(args_c, frame_size=frame_size)
+        t0 = time.perf_counter()
+        _, extra = restore_train_state(args_c.ckpt_dir, 4, second.state)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        second.losses, second.start = extra["losses"].tolist(), second.state.step
+        steps(second, 4, 8)
+        n_leaves, unequal, worst = tree_diff(train_state_tree(second.state), want_tree)
+        ok = not unequal or worst <= TOL_RESUME
+        outside = [ms for i, ms in step_ms[1:8] if i % 4]
+        log(f"# gym resume: save {save_s:.2f} s ({ckpt_mb:.1f} MB), restore into a fresh "
+            f"trainer {restore_s:.2f} s; 4 + 4 steps vs 8 straight: {n_leaves} leaves (params, "
+            f"buffers, 2 EMA, mu, nu, count, coefs, step), {len(unequal)} not bit for bit "
+            f"{unequal[:6]}, worst max|diff|/max|leaf| {worst:.2e} (tol {TOL_RESUME:.0e} if not "
+            f"bit for bit) ok={ok}; DART step on the encoded batch (data and encode outside) "
+            f"{sum(outside) / len(outside):.1f} ms ({b * 1e3 * len(outside) / sum(outside):.3f} "
+            f"samples/s)")
+        if not ok or len(second.losses) != 8:
+            failures.append("gym resume against the straight run")
+        summary.update(save_s=save_s, restore_s=restore_s, state_mb=ckpt_mb,
+                       resume_unequal=unequal, resume_worst=worst,
+                       step_ms_outside=sum(outside) / len(outside))
+        del second, want_tree
+        torch.cuda.empty_cache()
+
+        # (d) the replay rings on the card
+        args_d = gym_train.parse_args(base + ["--steps", "4", "--replay", "32",
+                                              "--replay-device", "--ckpt-every", "4",
+                                              "--ckpt-dir", str(work / "replay")])
+        trd = gym_train.build_trainer(args_d, frame_size=frame_size)
+        gen32 = SyntheticVideoGenerator(state_size=32, frame_size=frame_size, time_compression=4,
+                                        training_examples=32, seed=1)
+        replay = gym_train.device_replay(trd, gen32)
+        dispatches, copies = [], {}
+        orig_fn = trd.replay_fn
+
+        def replay_fn(state, bz, ba, idx, seed, just_2d=False):
+            if idx.shape[0] < 3:
+                return orig_fn(state, bz, ba, idx, seed, just_2d)
+            out, nbytes, n, kernels = htod_bytes(lambda: orig_fn(state, bz, ba, idx, seed,
+                                                                 just_2d))
+            copies.update(bytes=nbytes, copies=n, kernels=kernels, idx_bytes=idx.nbytes)
+            return out
+
+        def on_dispatch(i, g, m):
+            dispatches.append((i, g, bool(i % 4 == 0), float(m["loss"])))
+
+        trd.replay_fn = replay_fn
+        t0 = time.perf_counter()
+        reached = gym_train.replay_loop(trd, replay, on_dispatch)
+        replay_s = time.perf_counter() - t0
+        rings = [str(t.device) for t in replay.buffers()]
+        batch_bytes = b * GYM_T * res * res * cfg.img_channels * 4
+        ok = (reached == 4 and [(i, g, j) for i, g, j, _ in dispatches]
+              == [(0, 1, True), (1, 3, False)] and all(r.startswith("cuda") for r in rings)
+              and copies.get("kernels", 0) > 0 and copies.get("copies", 0) >= 1
+              and copies["bytes"] < batch_bytes / 100)
+        log(f"# gym replay --replay 32 --replay-device: dispatches (step, steps, just_2d, loss) "
+            f"{dispatches}, rings on {rings}, {replay.stats()}, {replay_s:.2f} s with the fill; "
+            f"the 3-step dispatch copied {copies.get('bytes')} B host to card in "
+            f"{copies.get('copies')} copies (index matrix {copies.get('idx_bytes')} B; one "
+            f"batch of latents {batch_bytes} B; held < 1% of it) beside {copies.get('kernels')} "
+            f"kernels ok={ok}")
+        if not ok:
+            failures.append("gym replay on the card")
+        summary.update(replay=dict(dispatches=dispatches, copies=copies, seconds=replay_s))
+        del trd, replay
+        torch.cuda.empty_cache()
+
+        # (e) export the 0.050 EMA as bf16, read it back, serve it
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as text:
+            bundle = export_ema.main(["--ckpt-dir", str(ck), "--cfg", str(ck / f"{unet_name}.ad"),
+                                      "--ema", "0", "--dtype", "bfloat16", "--device", DEV])
+        export_s = time.perf_counter() - t0
+        log(text.getvalue().strip())
+        _, variables = load_model(bundle)
+        flat = {}
+
+        def walk(tree, prefix=""):
+            for k, v in tree.items():
+                if isinstance(v, dict):
+                    walk(v, f"{prefix}{k}.")
+                else:
+                    flat[prefix + k] = v
+
+        walk(variables["params"])
+        bad = [n for n, t in ema_tree.items()
+               if not np.array_equal(getattr(flat.get(n), "bits", None), np_bf16_bits(t.numpy()))]
+        want_name = f"{unet_name}_ema0.050_step{ema_step}_bfloat16.ad"
+        png = work / "served.png"
+        with contextlib.redirect_stdout(io.StringIO()) as text:
+            generate.main(["--unet", str(bundle), "--vae", str(ROOT / VAE_BUNDLE),
+                           "--context-frames", "2", "--gen-frames", "1", "--bench-iters", "5",
+                           "--out", str(png), "--device", DEV])
+        served = json.loads(text.getvalue().strip().splitlines()[-1])
+        ok = (bundle.name == want_name and not bad and set(flat) == set(ema_tree)
+              and served["frames_finite"] and png.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
+              and served["decoded_shape"] == [1, 4, frame_size, frame_size, 3])
+        log(f"# gym export: {bundle.name} (want {want_name}) in {export_s:.2f} s, "
+            f"{bundle.stat().st_size / 2 ** 20:.1f} MB, {len(flat)} leaves, {len(bad)} not "
+            f"equal to the EMA rounded to bf16 (numpy round to nearest even); generate --unet: "
+            f"latents {served['frames_shape']} finite={served['frames_finite']}, decoded "
+            f"{served['decoded_shape']} uint8 PNG {png.stat().st_size} B, "
+            f"decode_ms_per_call={served['decode_ms_per_call']:.2f} ok={ok}")
+        if not ok:
+            failures.append("gym export and serve")
+        summary.update(export_s=export_s, served=served)
+        summary["launches"] = counts()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"# gym phase launches: {summary.get('launches')}")
+    return failures, summary
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1650,6 +2072,18 @@ def main(argv=None):
     sp_failures, sp_ranks = sp_path_phase(build_trainer, len(calls))
     failures += sp_failures
 
+    # phase 10: the gym training path (gym_train.py) and its EMA export
+    torch.cuda.empty_cache()
+    gym_failures, gym_summary = gym_phase(fa, fc, len(shapes))
+    failures += gym_failures
+    gym_launches = gym_summary.get("launches") or {}
+    launches_a += gym_launches.get("prefill", 0)
+    launches_b += gym_launches.get("block", 0)
+    launches_cf += gym_launches.get("conv_fwd", 0)
+    launches_cb += gym_launches.get("conv_bwd", 0)
+    train_flash = tuple(t + gym_launches.get(k, 0) for t, k in
+                        zip(train_flash, ("dart_fwd", "dart_bwd", "full_fwd", "full_bwd")))
+
     # the kernels line: main-path shapes in the main path's dtype (bf16)
     main_attn = next(r for r in attn_rows
                      if r["dtype"] == "bfloat16" and r["case"] == "ring off=0 t=8 F=64")
@@ -1728,7 +2162,9 @@ def main(argv=None):
         if k["launches"] == 0:
             failures.append(f"{k['name']} never launched on the main path")
     log("# launches of prefill_attention, decode_block and full_attention_fwd count the "
-        "rollouts of phases 5 and 9 (seeded random, r3 bf16, r3 int8) and the training steps")
+        "rollouts of phases 5 and 9 (seeded random, r3 bf16, r3 int8) and the training steps; "
+        "every row also counts phase 10 (the gym training path, its sampler callback, the "
+        "resume and replay steps and the served export)")
     log("# decode_block ms/plain_ms/bound_ms are sums over the 17 Blocks of one denoiser "
         "call; prefill_attention's are at the first prefill (t_new=8, f_total=64); the "
         "ms and library_ms of both are device times (library: F.scaled_dot_product_attention "
@@ -1755,7 +2191,8 @@ def main(argv=None):
                                     for k, v in sp_results.items()],
                       sp_path=[dict(rank=r["rank"], small_losses=r["small"]["losses"],
                                     **{k: v for k, v in r["gym"].items()})
-                               for r in sp_ranks])
+                               for r in sp_ranks],
+                      gym=gym_summary)
         Path(args.out).write_text(json.dumps(detail, indent=1))
 
     log(f"# total {time.perf_counter() - t_start:.1f} s")

@@ -40,8 +40,15 @@ def test_import_leaves_jax_out():
             "import autoregressive_diffusion_tpu_torch.parallel.collectives\n"
             "import autoregressive_diffusion_tpu_torch.parallel.launch\n"
             "import autoregressive_diffusion_tpu_torch.parallel.mesh\n"
+            "import autoregressive_diffusion_tpu_torch.data\n"
+            "import autoregressive_diffusion_tpu_torch.data.native\n"
+            "import autoregressive_diffusion_tpu_torch.data.gym_data\n"
+            "import autoregressive_diffusion_tpu_torch.data.replay\n"
+            "import autoregressive_diffusion_tpu_torch.gym_train\n"
+            "import autoregressive_diffusion_tpu_torch.export_ema\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
             "       or m == 'flax' or m.startswith('flax.') or m == 'optax'\n"
+            "       or m == 'orbax' or m.startswith('orbax.')\n"
             "       or m == 'msgpack' or m.startswith('msgpack.')\n"
             "       or m.startswith('autoregressive_diffusion_tpu.')\n"
             "       or m == 'autoregressive_diffusion_tpu']\n"
@@ -65,7 +72,7 @@ def test_no_module_names_the_jax_package():
                 names = [node.module or ""]
             for n in names:
                 root = n.split(".")[0]
-                assert root not in ("jax", "flax", "optax", "msgpack",
+                assert root not in ("jax", "flax", "optax", "orbax", "msgpack",
                                     "autoregressive_diffusion_tpu"), (path, n)
 
 
@@ -116,7 +123,9 @@ def test_every_port_module_is_on_the_isolation_list():
                  "train/train_state.py", "train/quantize.py", "utils/profiling.py",
                  "utils/checkpoint.py", "utils/bridge.py", "models/vae.py",
                  "decode_video.py", "parallel/__init__.py",
-                 "parallel/collectives.py", "parallel/launch.py", "parallel/mesh.py"):
+                 "parallel/collectives.py", "parallel/launch.py", "parallel/mesh.py",
+                 "data/__init__.py", "data/native.py", "data/gym_data.py", "data/replay.py",
+                 "gym_train.py", "export_ema.py"):
         assert want in names, want
 
 
