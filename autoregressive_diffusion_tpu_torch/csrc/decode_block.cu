@@ -53,6 +53,17 @@
 // that stage halo tiles and weights in shared memory and sum plain fp32
 // FMAs): its callers are held to fp32 roundoff, which no bf16 product
 // meets. The type alone picks the path.
+//
+// Channel limits. Both paths stage a pixel's Cin inputs as fp32 in shared
+// memory for the prologue's skip product, so Cin <= MAX_CIN (1024: 32 KB
+// for the SIMT prologue's 8 warps, under the 48 KB a launch gets without
+// opting in; 3 pixels a warp in the tensor-core stage ring). C0 and Co
+// have no limit of their own: the convolutions loop over 16-channel
+// chunks and output tiles of 32, and the prologue keeps the enc flavor's
+// unnormalised h in the fp32 residual buffer until the pixel norm, so no
+// register array a lane holds bounds them. The dec flavor's C0 == Cin is
+// then <= 1024. Beyond that only the grid bounds a launch (65535 rows of
+// blocks).
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -85,6 +96,7 @@ __device__ __forceinline__ float mp_silu(float z) {
 // wsk | x. t0 = mp_silu(h). The unnormalised h of the enc flavor goes
 // through res, which the lane that wrote it reads back after the norm.
 constexpr int PRO_PIX = 4;
+constexpr int MAX_CIN = 1024;  // input channels of a pixel staged in shared memory
 
 template <typename T>
 __device__ __forceinline__ void prologue_group(const T* __restrict__ x, const T* __restrict__ wsk,
@@ -146,6 +158,8 @@ __device__ __forceinline__ void prologue_group(const T* __restrict__ x, const T*
 // ===========================================================================
 // fp32: SIMT kernels.
 constexpr int PRO_WARPS = 8;
+static_assert(PRO_WARPS * MAX_CIN * sizeof(float) <= 48 * 1024,
+              "the SIMT prologue's staging fits the shared memory of a launch without opt-in");
 
 // One warp a pixel (np = 1): at fp32 more blocks beat reusing skip weights.
 __global__ void __launch_bounds__(PRO_WARPS * 32)
@@ -321,7 +335,7 @@ constexpr int SMEM = NSTAGE * STAGE_BYTES;  // 58,880 bytes: three blocks an SM
 constexpr int MAX_SPLIT = 8;       // portable cluster size
 constexpr int TARGET_BLOCKS = 264; // two blocks on each of the 132 SMs
 constexpr int MIN_CHUNKS = 4;      // of a split rank
-static_assert(SMEM >= 4 * 1024 * 4 * 3, "the prologue's 4 warps x 3 pixels x Cin <= 1024 floats");
+static_assert(SMEM >= 4 * MAX_CIN * 4 * 3, "the prologue's 4 warps x 3 pixels x MAX_CIN floats");
 static_assert(4 * 4 * NTH * 4 <= SMEM, "the partial tiles of a cluster reduction");
 
 // One convolution summed into an output tile: nf frames of (B, nf, H, W, C)
@@ -798,7 +812,7 @@ int ad_decode_block(const void* x, const void* a0, const void* a1, const void* w
                     int enc, int has_skip, int with_ctx, float res_t, float clip, int has_clip,
                     int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || H <= 0 || W <= 0 || Cin <= 0 || C0 <= 0 || Co <= 0 || C0 > 512 || Cin > 1024)
+  if (B <= 0 || H <= 0 || W <= 0 || Cin <= 0 || C0 <= 0 || Co <= 0 || Cin > MAX_CIN)
     return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return (int)run_simt(x, a0, a1, wsk, w20, w30, w21, w31, cv, gates, y, t0, t1, res, B, H,

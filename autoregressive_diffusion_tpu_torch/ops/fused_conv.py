@@ -127,26 +127,52 @@ def _check(name, t, shape, dtype, device):
         raise ValueError(f"fused kernel: {name} must be contiguous")
 
 
+# csrc/decode_block.cu: the prologue stages a pixel's Cin inputs in shared
+# memory (MAX_CIN); a launch has at most 65535 rows of blocks.
+_DECODE_MAX_CIN = 1024
+_MAX_GRID_ROWS = 65535
+_TC_SMEM = 58880  # tc::SMEM, the bf16 kernels' stage ring, which the prologue reuses
+
+
+def check_decode_block_shape(b: int, t: int, h: int, w: int, cin: int, c0: int, co: int,
+                             flavor: str, has_skip: bool) -> None:
+    """Raise ValueError for a Block step that the decode-Block kernels
+    cannot take: x (b, t, h, w, cin), conv0 C0 -> Co. C0 and Co have no
+    limit of their own (csrc/decode_block.cu says why); Cin is bounded by
+    the prologue's staging, and the grid by the rows of the bf16 kernel's
+    first launch at its smallest split (the SIMT grids are smaller)."""
+    if flavor not in ("enc", "dec"):
+        raise ValueError(f"decode block: unknown flavor {flavor!r}")
+    if t != 1:
+        raise ValueError(f"decode block: T={t}, the kernel is the T=1 step")
+    if min(b, h, w, cin, c0, co) <= 0:
+        raise ValueError(f"decode block: empty shape B={b} H={h} W={w} Cin={cin} C0={c0} "
+                         f"Co={co}")
+    if flavor == "enc" and c0 != co:
+        raise ValueError(f"decode block: enc flavor needs C0 == Co ({c0}, {co})")
+    if flavor == "dec" and c0 != cin:
+        raise ValueError(f"decode block: dec flavor needs C0 == Cin ({c0}, {cin})")
+    if not has_skip and cin != co:
+        raise ValueError(f"decode block: no skip weight but Cin={cin} != Co={co}")
+    if cin > _DECODE_MAX_CIN:
+        raise ValueError(f"decode block: Cin={cin} > {_DECODE_MAX_CIN}, the prologue's "
+                         f"shared-memory staging of a pixel's inputs")
+    tiles = -(-h // 8) * -(-w // 8)
+    pro_ppw = min(4, _TC_SMEM // (16 * cin))  # pixels a warp: 4 warps x 4-byte floats
+    rows = 2 * b * tiles * -(-co // 32) + -(-(b * h * w) // (4 * pro_ppw))
+    if rows > _MAX_GRID_ROWS:
+        raise ValueError(f"decode block: {rows} rows of blocks > {_MAX_GRID_ROWS}")
+
+
 def _launch(x, a0, a1, wsk, w20, w30, w21, w31, cv, gates, flavor, res_t,
             clip, with_ctx):
     global launches
-    if flavor not in ("enc", "dec"):
-        raise ValueError(f"decode block: unknown flavor {flavor!r}")
     dt, dev = x.dtype, x.device
     if dt not in _DTYPES:
         raise ValueError(f"decode block: dtype {dt} not float32/bfloat16")
     b, t, h, w, cin = x.shape
     c0, co = w20.shape[-2], w20.shape[-1]
-    if t != 1:
-        raise ValueError(f"decode block: T={t}, the kernel is the T=1 step")
-    if flavor == "enc" and c0 != co:
-        raise ValueError(f"decode block: enc flavor needs C0 == Co ({c0}, {co})")
-    if flavor == "dec" and c0 != cin:
-        raise ValueError(f"decode block: dec flavor needs C0 == Cin ({c0}, {cin})")
-    if wsk is None and cin != co:
-        raise ValueError(f"decode block: no skip weight but Cin={cin} != Co={co}")
-    if c0 > 512 or cin > 1024:
-        raise ValueError(f"decode block: C0={c0} > 512 or Cin={cin} > 1024")
+    check_decode_block_shape(b, t, h, w, cin, c0, co, flavor, wsk is not None)
     _check("x", x, (b, 1, h, w, cin), dt, dev)
     _check("w20", w20, (3, 3, c0, co), dt, dev)
     _check("w21", w21, (3, 3, co, co), dt, dev)

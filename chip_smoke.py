@@ -18,8 +18,10 @@ Phases, each of which fails the run with a non-zero exit:
   2b. the DART and full flash-attention kernels, forward and backward,
      against their plain versions (o, lse, dq, dk, dv) in fp32 (SIMT
      kernels) and bf16 (tensor-core kernels) at every attention shape of
-     the gym model's DART and just_2d training steps (batch 8, T=8), at the
-     rollout's frame-attention shapes (b*t = 1 and 8 frames) and at odd
+     the gym model's DART and just_2d training steps (batch 8, T=8) and of
+     the CS model's (batch 2, T=16: video attention at 4x4, 16 tokens a
+     frame, 8 heads of d=64; frame attention at 8x8), at both models'
+     rollout frame-attention shapes (b*t = 1 and 8 frames) and at odd
      shapes (T=3, hw=40, d=32, batch 1), with times of the kernels, the
      plain versions and F.scaled_dot_product_attention on the same mask
      (for the full kind also with no mask), forward and backward; kernel
@@ -27,7 +29,8 @@ Phases, each of which fails the run with a non-zero exit:
      sleeping kernel, so the host's launch cost is not counted), the wall
      time a call beside them;
   3. the fused decode-Block kernels against their plain version for every
-     attention-free Block shape of the gym model, fp32 (SIMT) and bf16
+     attention-free Block shape of the gym model and of the CS model (4x4
+     Blocks and C0 up to 768 among them), fp32 (SIMT) and bf16
      (tensor cores), with the kernels' device time and wall time a call and
      the plain version's wall time. The wgmma/mma.sync and TMA/cp.async
      instructions of every tensor-core kernel (flash, prefill, Block, the
@@ -47,7 +50,8 @@ Phases, each of which fails the run with a non-zero exit:
      their plain version (out, dx, dw2, dw3, dcvec, dgates) in fp32 (SIMT
      kernels) and bf16 (tensor cores; run twice, bit for bit) at every
      distinct (H, C, Co, silu_in, has_cvec, with_ctx) of the gym model's
-     causal convs at batch 8, T=8, and at one odd shape (24x40, C=9, T=3,
+     causal convs at batch 8, T=8, of the CS model's at batch 2, T=16 (one
+     microbatch; 4x4 frames among them), and at one odd shape (24x40, C=9, T=3,
      batch 1), with device times (device_ms) and wall times a call of the
      forward and of the backward entry point, each on its own, and of the
      unfused cuDNN path (F.conv2d in the working type plus elementwise ops;
@@ -115,6 +119,25 @@ Phases, each of which fails the run with a non-zero exit:
      export_ema of the 0.050 EMA as bf16, every leaf equal to the state's
      EMA rounded to bf16 in numpy, served by generate --unet --vae: finite
      latents and a uint8 PNG. Its launches join the kernels line.
+ 11. the CS path (build_cs_dataset, cs_train, cs_rollout, context_probe,
+     cs_eval_suite) at full width (the 310M CS UNet, 32x32x8 latents,
+     T=16) in a directory under build/ that it removes: (a) 8 synthetic
+     camera-pan clips of 128 frames at 128 px encoded by the trained VAE
+     into .npz shards of (32, 32, 32, 8) fp16 latents, one clip card
+     against CPU within std(diff) 3e-4, and an uncompressed MDS copy; (b)
+     cs_train --mds for 6 steps (batch 8 in microbatches of 2, just_2d at
+     steps 0 and 4), each step's launches held to four microbatches' (58
+     conv forward and backward, 6 DART and 5 full flash forward and
+     backward each; 11 full in a just_2d step), loss finite, weights unit
+     norm, EMA moved, the final save with the host's resident peak, and one
+     profiled DART step (busy share, launches); (c) the CS model in fp32,
+     card against CPU (prefill 4, one cached step, just_2d) within 3e-4,
+     with 17 decode-Block launches in each T=1 call; (d), (e) cs_eval_suite
+     on (b)'s checkpoint: context_probe's real and scrambled losses finite,
+     cs_rollout's 2 clips of 4 context and 2 generated frames (32 steps)
+     with 17 Blocks a denoiser call and 6 prefill launches a prefill, MSE
+     finite, a uint8 PNG; then the cached denoiser call timed and profiled.
+     Its launches join the kernels line.
 Then it prints the `kernels` JSON line, the nvidia-smi line and, last,
 {"ok": true, "device": {...}}. It exits non-zero, printing no result, when
 no CUDA device is present or the port's package is not beside it.
@@ -390,11 +413,16 @@ def serving_calls(cfg, frames=(1, 8)):
     return sorted(out)
 
 
-def flash_phase(fa, masks, F, cfg, b=8, t=8):
+def flash_phase(fa, masks, F, cfg, b=8, t=8, label="gym", odd=True):
+    """The kernels against their plain versions at every attention shape
+    of `cfg`'s DART and just_2d steps (batch b, T=t; keys labelled
+    `label`), its rollout's frame-attention shapes ("serve") and, with
+    `odd`, the odd shapes."""
     dev = torch.device(DEV)
-    gym = sorted(set(attention_calls(cfg, b, t, False) + attention_calls(cfg, b, t, True)))
-    cases = ([("gym", c) for c in gym] + [("serve", c) for c in serving_calls(cfg)]
-             + [("odd", ("dart", 1, 2, 3, 40, 32)), ("odd", ("full", 3, 2, 1, 40, 32))])
+    step = sorted(set(attention_calls(cfg, b, t, False) + attention_calls(cfg, b, t, True)))
+    cases = ([(label, c) for c in step] + [("serve", c) for c in serving_calls(cfg)]
+             + ([("odd", ("dart", 1, 2, 3, 40, 32)), ("odd", ("full", 3, 2, 1, 40, 32))]
+                if odd else []))
     results = {}
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
@@ -950,19 +978,21 @@ def conv_cost(b, f, h, w, c, co, has_cv, with_ctx, dtype):
     return (fwd, fwd_bytes), (bwd, bwd_bytes)
 
 
-def conv_phase(fc, cfg, b=8, t=8):
+def conv_phase(fc, cfg, b=8, t=8, label="gym", odd=True):
     """Kernels against the plain version at every distinct causal conv of
-    the model (batch 8, T=8) and the odd shapes, fp32 and bf16; bf16 also
-    run twice, bit for bit. Times: the forward and the backward entry point
-    each on its own, and the unfused cuDNN path's forward and its backward
-    (autograd over a kept graph), as device time (device_ms) and as wall
-    time a call; the plain version's as wall time."""
+    the model (batch b, T=t; keys labelled `label`) and, with `odd`, the odd
+    shapes, fp32 and bf16; bf16 also run twice, bit for bit. Times: the
+    forward and the backward entry point each on its own, and the unfused
+    cuDNN path's forward and its backward (autograd over a kept graph), as
+    device time (device_ms) and as wall time a call; the plain version's as
+    wall time."""
     calls = conv_calls(cfg)
-    gym = sorted(set(s for _, s in calls), key=lambda s: (-s[0], s[1], s[2], s[3], s[4]))
-    cases = [("gym", b, 2 * t if ctx else t, h, h, c, co, silu, cv, ctx)
-             for (h, c, co, silu, cv) in gym for ctx in (True, False)]
-    cases.append(("odd", 1, 6, 24, 40, 9, 32, True, True, True))
-    cases.append(("odd", 1, 3, 24, 40, 9, 32, True, True, False))
+    shapes = sorted(set(s for _, s in calls), key=lambda s: (-s[0], s[1], s[2], s[3], s[4]))
+    cases = [(label, b, 2 * t if ctx else t, h, h, c, co, silu, cv, ctx)
+             for (h, c, co, silu, cv) in shapes for ctx in (True, False)]
+    if odd:
+        cases.append(("odd", 1, 6, 24, 40, 9, 32, True, True, True))
+        cases.append(("odd", 1, 3, 24, 40, 9, 32, True, True, False))
     names = ("out", "dx", "dw2", "dw3", "dcvec", "dgates")
     results = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -1932,6 +1962,399 @@ def gym_phase(fa, fc, n_blocks, frame_size=GYM_FRAME, extra_args=()):
     return failures, summary
 
 
+def cs_kernel_summary(cs_cfg, calls, conv_results, flash_results, shapes, block_results,
+                      b=2, t=16, micro=4):
+    """The kernels at the CS model's shapes, bf16: sums over the causal
+    convs and the attention layers of one DART microbatch (batch b, T=t)
+    and of a step of `micro` microbatches, and over the attention-free
+    Blocks of one denoiser call, each beside its bound and its library
+    call; logged, and returned for the detail file."""
+    conv = [conv_results[("cs", b, 2 * t, h, h, c, co, silu, cv, True, "bfloat16")]
+            for _, (h, c, co, silu, cv) in calls]
+    keys = ("fwd_ms", "bwd_ms", "unfused_fwd_ms", "unfused_bwd_ms", "plain_fwd_ms",
+            "plain_bwd_ms", "bound_fwd_ms", "bound_bwd_ms")
+    conv_sum = {k: sum(r[k] for r in conv) for k in keys}
+    flash = {}
+    for kind in ("dart", "full"):
+        rs = [flash_results[("cs", c, "bfloat16")] for c in attention_calls(cs_cfg, b, t, False)
+              if c[0] == kind]
+        flash[kind] = {k: sum(r[k] for r in rs) for k in
+                       ("fwd_ms", "bwd_ms", "library_fwd_ms", "library_bwd_ms",
+                        "bound_fwd_ms", "bound_bwd_ms")}
+        flash[kind]["calls"] = len(rs)
+    per_call = [block_results[(sh, "bfloat16", True)] for _, sh in shapes]
+    block = {k: sum(r[k] for r in per_call) for k in ("ms", "plain_ms", "bound_ms")}
+    widest = max(shapes, key=lambda ns: ns[1][2])
+    wide = {dt: block_results[(widest[1], dt, True)] for dt in ("float32", "bfloat16")}
+    log(f"# cs-kernels conv: {len(calls)} causal convs of a DART microbatch (batch {b}, "
+        f"T={t}, bf16): device ms fwd={conv_sum['fwd_ms']:.3f} bwd={conv_sum['bwd_ms']:.3f} "
+        f"(a step of {micro} microbatches: {micro * conv_sum['fwd_ms']:.3f} + "
+        f"{micro * conv_sum['bwd_ms']:.3f}), unfused cuDNN {conv_sum['unfused_fwd_ms']:.3f} + "
+        f"{conv_sum['unfused_bwd_ms']:.3f}, bound {conv_sum['bound_fwd_ms']:.4f} + "
+        f"{conv_sum['bound_bwd_ms']:.4f}, wall plain {conv_sum['plain_fwd_ms']:.2f} + "
+        f"{conv_sum['plain_bwd_ms']:.2f}")
+    for kind, f in flash.items():
+        log(f"# cs-kernels {kind} attention: {f['calls']} layers of a DART microbatch: device "
+            f"ms fwd={f['fwd_ms']:.4f} bwd={f['bwd_ms']:.4f} (a step: {micro * f['fwd_ms']:.4f}"
+            f" + {micro * f['bwd_ms']:.4f}), SDPA {f['library_fwd_ms']:.4f} + "
+            f"{f['library_bwd_ms']:.4f}, bound {f['bound_fwd_ms']:.5f} + "
+            f"{f['bound_bwd_ms']:.5f}")
+    log(f"# cs-kernels decode Block: {len(shapes)} Blocks a denoiser call, bf16: device "
+        f"{block['ms']:.4f} ms, bound {block['bound_ms']:.5f} ms, wall plain "
+        f"{block['plain_ms']:.3f} ms; the widest, {widest[0]} {widest[1]}: bf16 "
+        f"{wide['bfloat16']['ms']:.4f} ms (bound {wide['bfloat16']['bound_ms']:.5f}, "
+        f"{wide['bfloat16']['bound_by']}), fp32 {wide['float32']['ms']:.4f} ms, ok "
+        f"{wide['bfloat16']['ok'] and wide['float32']['ok']}")
+    return dict(conv=conv_sum, flash=flash, block=block, widest=[widest[0], list(widest[1])],
+                widest_rows=wide)
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the CS path (build_cs_dataset, cs_train, cs_rollout,
+# context_probe), end to end at full width
+
+CS_FRAME = 128        # px: the trained VAE's 4x compression gives 32x32x8 latents
+CS_CLIP_FRAMES = 128  # frames a synthetic clip: 32 latent frames at time compression 4
+CS_STEPS = 6
+
+
+def cs_model_config(model_channels=128, max_frames=64):
+    """The CS UNet's fields, as generate.build_model overrides."""
+    return dict(img_resolution=32, img_channels=8, label_dim=4, model_channels=model_channels,
+                channel_mult=(1, 2, 4, 4), num_blocks=2, video_attn_resolutions=(4,),
+                frame_attn_resolutions=(8,), max_frames=max_frames)
+
+
+class HostPeak:
+    """The largest resident set of this process while the block runs,
+    sampled from /proc every 20 ms (MB)."""
+
+    def __enter__(self):
+        import threading
+        self.mb, self._stop = self._rss(), threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+        return self
+
+    @staticmethod
+    def _rss():
+        for line in Path("/proc/self/status").read_text().splitlines():
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) / 1024
+        return 0.0
+
+    def _run(self):
+        while not self._stop.wait(0.02):
+            self.mb = max(self.mb, self._rss())
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.mb = max(self.mb, self._rss())
+
+
+def cs_phase(fa, fc, model_channels=128, n_clips=8, clip_frames=CS_CLIP_FRAMES,
+             frame_size=CS_FRAME):
+    """The CS path through its entry points' functions, at full width, in a
+    directory under build/ that is removed afterwards: (a) build_cs_dataset
+    --synthetic encodes n_clips structured clips through the trained VAE
+    into .npz shards of (32, 32, 32, 8) fp16 latents, one clip held card
+    against CPU, and the same latents go into an uncompressed MDS copy;
+    (b) cs_train --mds for CS_STEPS steps (batch 8 in microbatches of 2,
+    T=16, just_2d at steps 0 and 4), each step's launches held to 4
+    microbatches' worth, loss finite, weights unit-norm, EMA moved, a
+    profiled DART step, the final save; (c) the CS model in fp32 on the
+    card against the CPU (prefill 4, one cached decode step, just_2d),
+    with the decode Block launched for every attention-free Block; (d), (e)
+    cs_eval_suite on (b)'s checkpoint: context_probe (finite losses, real
+    and scrambled) and cs_rollout (4 context frames, 2 generated, 2 clips,
+    32 steps; 17 Blocks a denoiser call, 6 prefill launches a prefill,
+    finite MSE, a uint8 PNG), then the cached denoiser call timed and
+    profiled. `model_channels`, `n_clips`, `clip_frames` and `frame_size`
+    shrink it for a rehearsal on the CPU."""
+    import contextlib
+    import io
+    import numpy as np
+    from autoregressive_diffusion_tpu_torch import (build_cs_dataset, cs_eval_suite,
+                                                    cs_rollout, cs_train)
+    from autoregressive_diffusion_tpu_torch.data import MDSShardWriter, resize_frames_batch
+    from autoregressive_diffusion_tpu_torch.generate import build_model, profile_decode
+    from autoregressive_diffusion_tpu_torch.models import init_cache
+    from autoregressive_diffusion_tpu_torch.models.attention import (FrameAttention,
+                                                                     VideoAttention)
+    from autoregressive_diffusion_tpu_torch.models.vae import encode_long_sequence
+    from autoregressive_diffusion_tpu_torch.train.cli import profile_steps
+    from autoregressive_diffusion_tpu_torch.utils import vae_from_bundle
+
+    failures, summary = [], {}
+    t_phase = time.perf_counter()
+    work = ROOT / "build" / f"cs_phase_{int(time.time() * 1e3)}"
+    npz_dir, mds_dir, ck, out_dir = work / "npz", work / "mds", work / "ckpt", work / "rollout"
+    vae_path = str(ROOT / VAE_BUNDLE)
+
+    def counts():
+        return dict(conv_fwd=fc.conv_fwd_launches, conv_bwd=fc.conv_bwd_launches,
+                    block=fc.launches, prefill=fa.launches,
+                    **{n.removesuffix("_launches"): getattr(fa, n) for n in FLASH_COUNTERS})
+
+    def zero_counts():
+        fc.conv_fwd_launches = fc.conv_bwd_launches = fc.launches = fa.launches = 0
+        zero_flash_counts(fa)
+
+    def delta(c0):
+        return {k: v - c0[k] for k, v in counts().items()}
+
+    total = {k: 0 for k in counts()}
+
+    def add(d):
+        for k, v in d.items():
+            total[k] += v
+
+    try:
+        # (a) the dataset
+        zero_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as text:
+            build_cs_dataset.main(
+                ["--synthetic", str(n_clips), "--clip-frames", str(clip_frames), "--frame-size",
+                 str(frame_size), "--vae-ckpt", vae_path, "--out", str(npz_dir), "--device", DEV])
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        t_lat, res = clip_frames // 4, frame_size // 4
+        shards = sorted(npz_dir.glob("*.npz"))
+        shapes = set()
+        with MDSShardWriter(str(mds_dir), {"mean": "ndarray", "action": "ndarray"},
+                            compression=None) as w:
+            for path in shards:
+                with np.load(path) as z:
+                    shapes.add((z["latents"].shape, str(z["latents"].dtype),
+                                z["actions"].shape))
+                    w.write({"mean": z["latents"], "action": z["actions"].astype(np.int64)})
+        want_shapes = {((t_lat, res, res, 8), "float16", (t_lat,))}
+        frames, _ = build_cs_dataset.structured_clip(np.random.default_rng(0), clip_frames)
+        x = torch.from_numpy(resize_frames_batch(frames, frame_size))[None]
+        lat = {}
+        for d in (DEV, "cpu"):
+            vae, _ = vae_from_bundle(vae_path, d)
+            lat[d] = encode_long_sequence(vae, x.to(d), split_size=512).float().cpu()
+        enc_err = float((lat[DEV] - lat["cpu"]).std())
+        ok = shapes == want_shapes and len(shards) == n_clips and enc_err <= TOL_E2E
+        log(f"# cs data: build_cs_dataset --synthetic {n_clips} --clip-frames {clip_frames} "
+            f"--frame-size {frame_size} in {build_s:.2f} s -> {len(shards)} .npz shards "
+            f"{sorted(shapes)} (want {sorted(want_shapes)}), MDS copy (uncompressed) "
+            f"{sum(p.stat().st_size for p in mds_dir.iterdir()) / 2 ** 20:.1f} MB; clip 0 "
+            f"encoded card vs CPU std(diff)={enc_err:.2e} tol={TOL_E2E:.0e} "
+            f"(latent std {float(lat['cpu'].std()):.3f}) ok={ok}")
+        if not ok:
+            failures.append("cs dataset: shapes or card against CPU")
+        summary.update(build_s=build_s, encode_err=enc_err, shards=len(shards))
+        del vae, lat
+        torch.cuda.empty_cache()
+
+        # (b) cs_train --mds at full width
+        args = cs_train.parse_args(["--mds", str(mds_dir), "--steps", str(CS_STEPS),
+                                    "--ckpt-dir", str(ck), "--device", DEV, "--use-actions",
+                                    "--model-channels", str(model_channels)])
+        tr = cs_train.build_trainer(args)
+        model = tr.state.model
+        cfg = tr.cfg
+        b, micro = args.batch, args.batch // args.micro_batch
+        n_video = sum(isinstance(m, VideoAttention) for m in model.modules())
+        n_frame = sum(isinstance(m, FrameAttention) for m in model.modules())
+        n_convs = len(conv_calls(cfg))
+        want_step = {False: dict(conv_fwd=micro * n_convs, conv_bwd=micro * n_convs,
+                                 dart_fwd=micro * n_video, dart_bwd=micro * n_video,
+                                 full_fwd=micro * n_frame, full_bwd=micro * n_frame),
+                     True: dict(conv_fwd=micro * n_convs, conv_bwd=micro * n_convs,
+                                dart_fwd=0, dart_bwd=0, full_fwd=micro * (n_video + n_frame),
+                                full_bwd=micro * (n_video + n_frame))}
+        ema0 = {n: v.clone() for n, v in tr.state.ema[0].items()}
+        params0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+        rows, mark, saves = [], {}, []
+        orig_checkpoint = tr.checkpoint
+
+        def checkpoint(block=True):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with HostPeak() as peak:
+                out = orig_checkpoint(block)
+            saves.append(dict(block=block, seconds=time.perf_counter() - t0,
+                              host_peak_mb=peak.mb))
+            return out
+
+        def on_step(i, m):
+            loss = float(m["loss"])  # the step is done
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            d = delta(mark["c"])
+            row = dict(step=i, just_2d=i % 4 == 0, loss=loss, ms=(now - mark["t"]) * 1e3,
+                       launches={k: d[k] for k in want_step[True]})
+            row["samples_per_sec"] = b * 1e3 / row["ms"]
+            rows.append(row)
+            log(f"# cs step {i} {'just_2d' if row['just_2d'] else 'dart':7s} loss={loss:.4f} "
+                f"{row['ms']:.1f} ms {row['samples_per_sec']:.2f} samples/s (next batch + "
+                f"step) launches {row['launches']} (want {want_step[row['just_2d']]})")
+            if row["launches"] != want_step[row["just_2d"]]:
+                failures.append(f"cs step {i}: launches {row['launches']}")
+            if not np.isfinite(loss):
+                failures.append(f"cs step {i}: loss not finite")
+            mark["t"], mark["c"] = time.perf_counter(), counts()
+
+        tr.checkpoint = checkpoint
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        c_train = counts()
+        mark["t"], mark["c"] = time.perf_counter(), counts()
+        with contextlib.redirect_stdout(io.StringIO()) as text:
+            reached = cs_train.train_loop(tr, cs_train.make_loader(tr), on_step)
+        log(text.getvalue().strip())
+        add(delta(c_train))
+        train_peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        worst_norm = 0.0
+        for n, p in model.named_parameters():
+            if n.rsplit(".", 1)[-1] == "w":
+                norm = p.detach().float().pow(2).sum(dim=tuple(range(p.ndim - 1))).sqrt()
+                worst_norm = max(worst_norm, float((norm / p[..., 0].numel() ** 0.5 - 1)
+                                                   .abs().max()))
+        # the EMA moves where the weights moved (leaves behind a zero gain
+        # get no gradient in the first steps, and stay where they started)
+        moved = {n for n in ema0 if not torch.equal(tr.state.ema[0][n], ema0[n])}
+        changed = {n for n, p in model.named_parameters() if not torch.equal(p, params0[n])}
+        dart = [r for r in rows[1:] if not r["just_2d"]]
+        step_ms = sum(r["ms"] for r in dart) / max(len(dart), 1)
+        j2d = [r["ms"] for r in rows[1:] if r["just_2d"]]
+        ok = (reached == CS_STEPS and [r["step"] for r in rows] == list(range(CS_STEPS))
+              and worst_norm <= 1e-3 and moved == changed and len(moved) >= len(ema0) / 2
+              and len(saves) == 1
+              and np.isfinite(tr.losses).all() and len(tr.losses) == CS_STEPS)
+        ckpt_mb = sum(f.stat().st_size for p in ck.iterdir() if p.is_dir()
+                      for f in p.iterdir()) / 2 ** 20
+        log(f"# cs train: {tr.n_params / 1e6:.1f}M params, bf16 body, batch {b} in "
+            f"microbatches of {args.micro_batch}, T={args.clip_size}, 32x32x8 latents from "
+            f"the MDS copy: DART step {step_ms:.1f} ms ({b * 1e3 / step_ms:.3f} samples/s, "
+            f"steps after the first, next batch included), just_2d {j2d} ms, peak "
+            f"{train_peak:.1f} MB; |norm-1| of w <= {worst_norm:.1e}, EMA moved in "
+            f"{len(moved)}/{len(ema0)} leaves, the weights in {len(changed)}; final save {saves[0]['seconds'] if saves else 0:.2f} s "
+            f"({ckpt_mb:.1f} MB on disk, host peak {saves[0]['host_peak_mb'] if saves else 0:.0f}"
+            f" MB resident during the save) ok={ok}")
+        if not ok:
+            failures.append("cs train: steps, norms, EMA or the final save")
+        del ema0, params0
+        # one profiled DART step on a batch of the run's data
+        latents, actions = next(cs_train.make_loader(tr))
+        c_prof = counts()
+        prof = profile_steps(tr.state, tr.step_fn, latents, actions, steps=1, seed=1)
+        add(delta(c_prof))
+        log(f"# cs profiled DART step: wall {prof['wall_ms_per_step']:.1f} ms, device busy "
+            f"{prof['device_busy_ms_per_step']:.1f} ms (idle "
+            f"{prof['device_idle_share']:.1%}), {prof['kernel_launches_per_step']:.0f} "
+            f"launches; device ms by group "
+            f"{ {k: round(v, 3) for k, v in prof['device_ms_per_step_by_group'].items()} }")
+        summary.update(rows=rows, dart_step_ms=step_ms, dart_samples_per_sec=b * 1e3 / step_ms,
+                       just_2d_ms=j2d, train_peak_mb=train_peak, saves=saves,
+                       ckpt_mb=ckpt_mb, n_params=tr.n_params, profile=prof)
+        tr.checkpoint = orig_checkpoint
+        del tr, model, latents, actions
+        torch.cuda.empty_cache()
+
+        # (c) the CS model in fp32, card against CPU: the repair end to end
+        c_e2e = counts()
+        ok_e2e, errs = e2e_phase(lambda d: build_model(d, torch.float32, seed=1,
+                                                       **cs_model_config(model_channels)),
+                                 init_cache, "cs full width", 4)
+        d_e2e = delta(c_e2e)
+        add(d_e2e)
+        n_blocks = len(decode_block_shapes(cfg))
+        log(f"# cs e2e: decode Block launches on the card {d_e2e['block']} (want "
+            f"{2 * n_blocks}: {n_blocks} Blocks in the cached step and in the just_2d step)")
+        if not ok_e2e or d_e2e["block"] != 2 * n_blocks:
+            failures.append("cs end to end, card against CPU")
+        summary.update(e2e=errs)
+        torch.cuda.empty_cache()
+
+        # (d), (e) the eval suite (probe, rollout) on (b)'s checkpoint
+        t0 = time.perf_counter()
+        with HostPeak() as peak:
+            model, step = cs_rollout.restore_model(str(ck), model_channels, torch.device(DEV),
+                                                   torch.bfloat16)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        eargs = cs_eval_suite.parse_args(["--ckpt-dir", str(ck), "--mds", str(mds_dir),
+                                          "--vae", vae_path, "--frames", "2", "--out",
+                                          str(out_dir), "--device", DEV,
+                                          "--model-channels", str(model_channels)])
+        c_eval = counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as text:
+            res_ = cs_eval_suite.run(model, eargs)
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+        log(text.getvalue().strip())
+        d_eval = delta(c_eval)
+        add(d_eval)
+        probe, roll = res_["probe"], res_["rollout"]
+        n_win = n_clips * (t_lat // 16)
+        n_loss = 2 * min(4, n_win // 8)  # real and scrambled a probe batch
+        calls = roll["clips"] * eargs.frames * (2 * 32 - 1)  # denoiser calls, 32 steps
+        model_calls = calls + roll["clips"]  # and a prefill a clip
+        want = dict(conv_fwd=n_loss * n_convs, conv_bwd=0, block=n_blocks * calls,
+                    prefill=n_video * roll["clips"], dart_fwd=n_loss * n_video, dart_bwd=0,
+                    full_fwd=n_loss * n_frame + n_frame * model_calls, full_bwd=0)
+        png = Path(roll["strip"] or out_dir / "none.png")
+        png_ok = png.exists() and png.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
+        losses = np.asarray(probe["real"] + probe["scrambled"])
+        ok = (d_eval == want and np.isfinite(losses).all() and len(losses) == n_loss
+              and np.isfinite(roll["mse"]).all() and png_ok)
+        log(f"# cs eval: restore {restore_s:.2f} s (host peak {peak.mb:.0f} MB resident), "
+            f"probe + rollout {eval_s:.2f} s; probe real {probe['real']} scrambled "
+            f"{probe['scrambled']} ratio {probe['ratio']:.3f}; rollout mse {roll['mse']} "
+            f"persistence {roll['persistence']} ({roll['clips']} clips, 4 context + "
+            f"{eargs.frames} frames, {calls} denoiser calls, "
+            f"{eval_s * 1e3 / max(calls, 1):.1f} ms a call with the probe and the sampler), "
+            f"png {png.stat().st_size if png_ok else 0} B; launches {d_eval} (want {want}) "
+            f"ok={ok}")
+        if not ok:
+            failures.append("cs eval suite: launches, losses, MSE or the PNG")
+        summary.update(restore_s=restore_s, restore_host_peak_mb=peak.mb, eval_s=eval_s,
+                       probe=probe, rollout_mse=[float(v) for v in roll["mse"]],
+                       rollout_persistence=[float(v) for v in roll["persistence"]])
+        # the cached denoiser call on the trained weights
+        g = torch.Generator(device=DEV).manual_seed(3)
+        x = torch.randn((1, 4, 32, 32, 8), generator=g, device=DEV)
+        c_dec = counts()
+        with torch.no_grad():
+            cache = init_cache(model, 1, device=DEV)
+            _, cache = model(x, torch.full((1, 4), 0.05, device=DEV),
+                             torch.zeros((1, 4), dtype=torch.long, device=DEV), cache=cache,
+                             update_cache=True)
+            x1, s1 = x[:, :1], torch.ones((1, 1), device=DEV)
+            c1 = torch.zeros((1, 1), dtype=torch.long, device=DEV)
+            for _ in range(3):
+                x1 = model(x1, s1, c1, cache=cache)[0]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(20):
+                x1 = model(x1, s1, c1, cache=cache)[0]
+            torch.cuda.synchronize()
+            call_ms = (time.perf_counter() - t0) * 1e3 / 20
+            dec = profile_decode(model, cache, calls=10)
+        add(delta(c_dec))
+        log(f"# cs cached denoiser call (bf16, trained weights, 4 frames in the cache): "
+            f"{call_ms:.2f} ms a call unprofiled; profiled {dec['wall_ms_per_call']:.2f} ms, "
+            f"device busy {dec['device_busy_ms_per_call']:.3f} ms (decode Block "
+            f"{dec['decode_block_device_ms_per_call']:.4f}), idle "
+            f"{dec['device_idle_share']:.1%}, {dec['kernel_launches_per_call']:.0f} launches")
+        summary.update(decode_call_ms=call_ms, decode_profile=dec)
+        summary["launches"] = dict(total)
+        del model, cache
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    summary["seconds"] = time.perf_counter() - t_phase
+    log(f"# cs phase: {summary['seconds']:.1f} s, launches {summary.get('launches')}")
+    return failures, summary
+
+
 # ---------------------------------------------------------------------------
 
 def main(argv=None):
@@ -2003,14 +2426,27 @@ def main(argv=None):
     failures += [f"attention {r['dtype']} {r['case']}" for r in attn_rows if not r["ok"]]
 
     gym = UNetConfig(**GYM_CONFIG)
+    cs_cfg = UNetConfig(**cs_model_config())
     flash_results = flash_phase(fa, masks, F, gym)
+    flash_results.update(flash_phase(fa, masks, F, cs_cfg, b=2, t=16, label="cs", odd=False))
     failures += [f"flash attention {k}" for k, r in flash_results.items() if not r["ok"]]
     shapes, block_results = decode_block_phase(fc, gym)
+    cs_shapes, cs_block_results = decode_block_phase(fc, cs_cfg)
+    block_results.update(cs_block_results)
     failures += [f"decode block {k}" for k, r in block_results.items() if not r["ok"]]
+
+    def conv_phases():
+        calls, results = conv_phase(fc, gym)
+        cs_calls, cs_results = conv_phase(fc, cs_cfg, b=2, t=16, label="cs", odd=False)
+        results.update(cs_results)
+        return calls, cs_calls, results
+
     if args.kernels_only:
-        calls, conv_results = conv_phase(fc, gym)
+        calls, cs_calls, conv_results = conv_phases()
         failures += [f"fused conv {k}" for k, r in conv_results.items() if not r["ok"]]
         conv_kernel_rows(calls, conv_results, 0, 0)
+        cs_kernel_summary(cs_cfg, cs_calls, conv_results, flash_results, cs_shapes,
+                          block_results)
         log(f"# kernels-only: stopped after phases 3 and 6, {time.perf_counter() - t_start:.1f} "
             f"s, {len(failures)} failures {failures}")
         return 1 if failures else 0
@@ -2049,8 +2485,10 @@ def main(argv=None):
     torch.cuda.empty_cache()
 
     # phase 6: the train-mode conv kernels
-    calls, conv_results = conv_phase(fc, gym)
+    calls, cs_calls, conv_results = conv_phases()
     failures += [f"fused conv {k}" for k, r in conv_results.items() if not r["ok"]]
+    cs_kernels = cs_kernel_summary(cs_cfg, cs_calls, conv_results, flash_results, cs_shapes,
+                                   block_results)
     ok_dw, dw_err_kernel, dw_err_plain = dw_float64_check(fc)
     if not ok_dw:
         failures.append("fused conv dw2 against float64")
@@ -2082,6 +2520,18 @@ def main(argv=None):
     launches_cf += gym_launches.get("conv_fwd", 0)
     launches_cb += gym_launches.get("conv_bwd", 0)
     train_flash = tuple(t + gym_launches.get(k, 0) for t, k in
+                        zip(train_flash, ("dart_fwd", "dart_bwd", "full_fwd", "full_bwd")))
+
+    # phase 11: the CS path (build_cs_dataset, cs_train, cs_rollout, context_probe)
+    torch.cuda.empty_cache()
+    cs_failures, cs_summary = cs_phase(fa, fc)
+    failures += cs_failures
+    cs_launches = cs_summary.get("launches") or {}
+    launches_a += cs_launches.get("prefill", 0)
+    launches_b += cs_launches.get("block", 0)
+    launches_cf += cs_launches.get("conv_fwd", 0)
+    launches_cb += cs_launches.get("conv_bwd", 0)
+    train_flash = tuple(t + cs_launches.get(k, 0) for t, k in
                         zip(train_flash, ("dart_fwd", "dart_bwd", "full_fwd", "full_bwd")))
 
     # the kernels line: main-path shapes in the main path's dtype (bf16)
@@ -2164,7 +2614,9 @@ def main(argv=None):
     log("# launches of prefill_attention, decode_block and full_attention_fwd count the "
         "rollouts of phases 5 and 9 (seeded random, r3 bf16, r3 int8) and the training steps; "
         "every row also counts phase 10 (the gym training path, its sampler callback, the "
-        "resume and replay steps and the served export)")
+        "resume and replay steps and the served export) and phase 11 (the CS path: its "
+        "training steps, the card-against-CPU check, the probe, the rollout and the timed "
+        "denoiser calls)")
     log("# decode_block ms/plain_ms/bound_ms are sums over the 17 Blocks of one denoiser "
         "call; prefill_attention's are at the first prefill (t_new=8, f_total=64); the "
         "ms and library_ms of both are device times (library: F.scaled_dot_product_attention "
@@ -2192,7 +2644,7 @@ def main(argv=None):
                       sp_path=[dict(rank=r["rank"], small_losses=r["small"]["losses"],
                                     **{k: v for k, v in r["gym"].items()})
                                for r in sp_ranks],
-                      gym=gym_summary)
+                      gym=gym_summary, cs=cs_summary, cs_kernels=cs_kernels)
         Path(args.out).write_text(json.dumps(detail, indent=1))
 
     log(f"# total {time.perf_counter() - t_start:.1f} s")

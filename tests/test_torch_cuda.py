@@ -166,6 +166,50 @@ def test_decode_block_kernel_matches_plain(cuda, dtype, case, with_ctx):
             assert rel_err(a, w) <= 1e-2
 
 
+def cs_block_shapes():
+    """(H, Cin, C0, Co, flavor, has_skip) of the CS denoiser's 17
+    attention-free Blocks, distinct, in execution order."""
+    from autoregressive_diffusion_tpu_torch.cs_train import cs_config
+    out = []
+    for _, _, spec in cs_config().block_layout():
+        if spec["kind"] == "block" and spec["attention"] is None:
+            cin, co = spec["cin"], spec["cout"]
+            c0 = co if spec["flavor"] == "enc" else cin
+            if (spec["res"], cin, c0, co, spec["flavor"], cin != co) not in out:
+                out.append((spec["res"], cin, c0, co, spec["flavor"], cin != co))
+    return out
+
+
+WIDE_BLOCKS = (  # C0 up to the prologue's Cin limit of 1024
+    cs_block_shapes()                      # 4x4 Blocks and dec 16x16 C0 = 768 among them
+    + [(8, 1024, 1024, 512, "dec", True),  # dec C0 = Cin = 1024
+       (4, 1024, 1024, 512, "dec", True),  # the same on a frame smaller than a tile
+       (8, 512, 1024, 1024, "enc", True),  # enc C0 = Co = 1024
+       (16, 768, 768, 768, "dec", False)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", WIDE_BLOCKS)
+@pytest.mark.parametrize("with_ctx", [True, False])
+def test_decode_block_kernel_at_wide_c0(cuda, dtype, shape, with_ctx):
+    """Every attention-free Block of the CS denoiser and C0 = 768 and 1024
+    (dec and enc) against the plain version, as above."""
+    fc.check_decode_block_shape(1, 1, shape[0], shape[0], *shape[1:4], shape[4], shape[5])
+    args = block_args(cuda, dtype, shape, with_ctx, seed=5)
+    before = fc.launches
+    got = fc.fused_decode_block(*args, shape[4], 0.3, 256.0, with_ctx)
+    want = fc.fused_decode_block_plain(*args, shape[4], 0.3, 256.0, with_ctx)
+    torch.cuda.synchronize()
+    assert fc.launches == before + 1
+    for a, w in zip(got, want):
+        assert bool(torch.isfinite(a).all())
+        if dtype == torch.float32:
+            assert float((a - w).abs().max()) <= 1e-3
+        else:
+            assert rel_err(a, w) <= 1e-2
+
+
 @pytest.mark.cuda
 def test_serving_bf16_kernels_repeat_bit_for_bit(cuda):
     """The bf16 prefill and decode-Block kernels, run twice on the same

@@ -46,6 +46,14 @@ def test_import_leaves_jax_out():
             "import autoregressive_diffusion_tpu_torch.data.replay\n"
             "import autoregressive_diffusion_tpu_torch.gym_train\n"
             "import autoregressive_diffusion_tpu_torch.export_ema\n"
+            "import autoregressive_diffusion_tpu_torch.data.mds\n"
+            "import autoregressive_diffusion_tpu_torch.data.cs_data\n"
+            "import autoregressive_diffusion_tpu_torch.build_cs_dataset\n"
+            "import autoregressive_diffusion_tpu_torch.compute_latent_stats\n"
+            "import autoregressive_diffusion_tpu_torch.cs_train\n"
+            "import autoregressive_diffusion_tpu_torch.cs_rollout\n"
+            "import autoregressive_diffusion_tpu_torch.context_probe\n"
+            "import autoregressive_diffusion_tpu_torch.cs_eval_suite\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
             "       or m == 'flax' or m.startswith('flax.') or m == 'optax'\n"
             "       or m == 'orbax' or m.startswith('orbax.')\n"
@@ -125,7 +133,9 @@ def test_every_port_module_is_on_the_isolation_list():
                  "decode_video.py", "parallel/__init__.py",
                  "parallel/collectives.py", "parallel/launch.py", "parallel/mesh.py",
                  "data/__init__.py", "data/native.py", "data/gym_data.py", "data/replay.py",
-                 "gym_train.py", "export_ema.py"):
+                 "gym_train.py", "export_ema.py", "data/mds.py", "data/cs_data.py",
+                 "build_cs_dataset.py", "compute_latent_stats.py", "cs_train.py",
+                 "cs_rollout.py", "context_probe.py", "cs_eval_suite.py"):
         assert want in names, want
 
 

@@ -77,3 +77,13 @@ def train_steps(dp, sp, b, t, seed):
     sigma = m["sigma"].numpy()
     torch.distributed.destroy_process_group()
     return dict(losses=losses, params=params, mismatches=bad, sigma=sigma)
+
+
+def cs_train_run(argv):
+    """cs_train.main(argv) on this rank: (the losses, the parameters' float64
+    sums by name)."""
+    from autoregressive_diffusion_tpu_torch import cs_train
+    torch.set_num_threads(1)  # two ranks beside the other test workers
+    tr = cs_train.main(argv)
+    return (list(tr.losses), {n: float(p.detach().double().sum())
+                              for n, p in tr.state.model.named_parameters()})
