@@ -34,7 +34,9 @@ its bits. --use-actions feeds the clips' actions to the label embedding
 Parallelism: --sp splits each clip's frames over SP ranks and the world's
 other factor is data parallelism, through parallel/ (as train/cli.py does);
 every rank reads the same global batch and takes its slice, the metrics
-are global, and rank 0 alone writes checkpoints. --tp and --fsdp are not
+are global, and rank 0 alone writes checkpoints. --mds and --shards are
+read in order on every rank (no worker threads), so the ranks draw the
+same windows from the same seed. --tp and --fsdp are not
 ported (ROADMAP.md, Queue 1 item 7) and raise.
 """
 from __future__ import annotations
@@ -235,8 +237,11 @@ def make_loader(tr: CSTrainer):
         return host_batches(batched_latents(epochs(), b, normalize=(a.lat_mean, a.lat_std),
                                             num_workers=0))
     if a.shards is not None and not a.synthetic:
+        # in order, as --mds: worker threads would stack each batch in the
+        # order their items arrive, so ranks under a mesh would disagree
         ds = LocalLatentShards(a.shards, clip_size=t)
-        return host_batches(batched_latents(ds, b, normalize=(a.lat_mean, a.lat_std)))
+        return host_batches(batched_latents(ds, b, normalize=(a.lat_mean, a.lat_std),
+                                            num_workers=0))
 
     def synthetic():
         i = tr.start

@@ -1,7 +1,7 @@
 """Group-causal video VAE (PyTorch, channels-last at module boundaries).
 
 Counterpart of autoregressive_diffusion_tpu/models/vae.py, module for
-module and with the same tree names, so that utils/bridge.load_vae_variables
+module and with the same tree names, so that utils/bridge.load_flax_variables
 is a rename: flax's conv `kernel` (DHWIO) and Dense `kernel` (in, out)
 become torch's `weight` (O, I, D, H, W) and (out, in).
   * GroupCausalConv3d: a conv3d with time stride = group size, then a time
@@ -11,13 +11,15 @@ become torch's `weight` (O, I, D, H, W) and (out, in).
 Videos are (b, t, h, w, c), latents (b, t_lat, h_lat, w_lat, c_lat). The
 JAX package computes these convolutions with lax.conv outside any Pallas
 kernel, so here they are F.conv3d in fp32; the VAE has no kernel of its
-own. Weights start at zero: the VAE is only served, from a bundle
+own. A new VAE holds zeros: `init_vae` draws the weights to train from,
+by the JAX package's law, and a trained VAE comes from a bundle
 (utils/bridge.vae_from_bundle). frames_to_latents has the intended
 (l - mean) / std semantics, as in the JAX package.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Tuple
 
 import einops
@@ -244,13 +246,10 @@ class VAE(nn.Module):
         from `generator` (t ~ U(0, t_max), noise ~ N(0, 1)); with neither,
         t = 0 and z = mean. Returns (recon mean, recon logvar, latent mean)."""
         mean, _ = self.encode(x)
-        b = x.shape[0]
-        if t is None:
-            t = (torch.zeros((b,), dtype=x.dtype, device=x.device) if generator is None else
-                 torch.rand((b,), generator=generator, device=x.device, dtype=x.dtype) * t_max)
-        if noise is None and generator is not None:
-            noise = torch.randn(mean.shape, generator=generator, device=x.device,
-                                dtype=mean.dtype)
+        if t is None and generator is not None:
+            t, noise = self.draw_t_noise(x, generator, t_max)
+        elif t is None:
+            t = torch.zeros((x.shape[0],), dtype=x.dtype, device=x.device)
         z = mean
         if noise is not None:
             tb = t[:, None, None, None, None]
@@ -258,11 +257,75 @@ class VAE(nn.Module):
         r_mean, r_logvar, _ = self.decode(z, t)
         return r_mean, r_logvar, mean
 
+    def latent_shape(self, x_shape) -> Tuple[int, ...]:
+        """The latents' shape of a (b, t, h, w, c) video's."""
+        b, t, h, w, _ = x_shape
+        tc, sc = self.cfg.time_compression, self.cfg.spatial_compression
+        return (b, t // tc, h // sc, w // sc, self.cfg.channels[-1])
+
+    def draw_t_noise(self, x, generator: torch.Generator, t_max: float = 0.1):
+        """(t ~ U(0, t_max) of shape (b,), noise ~ N(0, 1) of the latents'
+        shape), drawn in that order from `generator`, as forward draws them.
+        A caller that recomputes the forward (activation checkpointing)
+        draws them once here and passes them in."""
+        t = torch.rand((x.shape[0],), generator=generator, device=x.device, dtype=x.dtype)
+        noise = torch.randn(self.latent_shape(x.shape), generator=generator, device=x.device,
+                            dtype=x.dtype)
+        return t * t_max, noise
+
     def encode(self, x, cache=None, streaming: bool = False):
         return self.encoder(x, None, cache, streaming)
 
     def decode(self, z, t, cache=None, streaming: bool = False):
         return self.decoder(z, t, cache, streaming)
+
+
+def conv_uniform_(w: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """Fill a torch-layout conv or Linear weight (out, in, *kernel) in place
+    with U(-1/sqrt(fan_in), 1/sqrt(fan_in)), fan_in = in * prod(kernel): the
+    JAX package's variance_scaling(1/3, "fan_in", "uniform"), which is torch's
+    own conv default. Drawn on the generator's device, copied to w's."""
+    bound = w[0].numel() ** -0.5
+    u = torch.rand(w.shape, generator=generator, device=generator.device)
+    return w.copy_((2 * u - 1) * bound)
+
+
+@torch.no_grad()
+def init_vae(vae: VAE, generator: torch.Generator) -> VAE:
+    """Random weights to train from, in place, by the JAX package's law
+    (models/vae.py): every conv kernel U(+-1/sqrt(fan_in)) and every bias 0;
+    a GroupCausalConv3d's kernel with its kt - g oldest time taps zeroed,
+    then all of it scaled by 32^-0.25; the res blocks' conv3d1 and t_cond
+    Dense zero; Fourier freqs 2 pi N(0, 1), phases 2 pi U(0, 1); the logvar
+    multiplier -2. Torch cannot draw JAX's bits: the law, not the values,
+    is the JAX package's."""
+    for m in vae.modules():
+        if isinstance(m, GroupCausalConv3d):
+            kt, g = m.kernel[0], m.group_size
+            w = conv_uniform_(m.weight, generator)
+            if kt > g:
+                w[:, :, :kt - g] = 0  # (O, I, D, H, W): D is time, oldest first
+            w.mul_(32 ** -0.25)
+            m.bias.zero_()
+        elif isinstance(m, VAEResBlock):
+            for zeroed in (m.conv3d1,) + ((m.t_cond,) if m.t_cond_on else ()):
+                zeroed.weight.zero_()
+                zeroed.bias.zero_()
+            if m.t_cond_on:
+                dev = generator.device
+                m.freqs.copy_(2 * math.pi * torch.randn(m.freqs.shape, generator=generator,
+                                                        device=dev))
+                m.phases.copy_(2 * math.pi * torch.rand(m.phases.shape, generator=generator,
+                                                        device=dev))
+        elif isinstance(m, EncoderDecoderBlock):
+            for name in ("compression_block", "decompression_block", "final_conv"):
+                conv = getattr(m, name, None)
+                if conv is not None:
+                    conv_uniform_(conv.weight, generator)
+                    conv.bias.zero_()
+        elif isinstance(m, EncoderDecoder) and m.is_dec:
+            m.logvar_multiplier.fill_(-2.0)
+    return vae
 
 
 # ---------------------------------------------------------------------------

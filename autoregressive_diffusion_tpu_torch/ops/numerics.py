@@ -104,3 +104,9 @@ def resample(x: torch.Tensor, f: Sequence[float] = (1, 1),
     else:
         raise ValueError(f"unknown resample mode {mode!r}")
     return y.reshape(tuple(lead) + tuple(y.shape[1:]))
+
+
+def gaussian_loss(mean: torch.Tensor, logvar: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Heteroscedastic Gaussian NLL, averaged: mean((logvar + (mean - target)^2
+    * exp(-logvar)) / 2 + 0.918)."""
+    return torch.mean((logvar + (mean - target) ** 2 * torch.exp(-logvar)) * 0.5 + 0.918)

@@ -21,10 +21,13 @@ Leaves keep their meaning: int8 leaves (the `w_q` of int8 decode weights)
 stay int8, bfloat16 leaves (utils/checkpoint.BFloat16Leaf, or a bf16
 array of another library) widen exactly to fp32, everything else becomes
 fp32. `from_bundle` builds the denoiser from a `.ad` bundle, optionally
-with int8 decode weights; `load_vae_variables` and `vae_from_bundle` do the
-same for the VAE, whose flax tree names conv weights `kernel` (DHWIO) and
-Dense kernels (in, out), which become torch's `weight` (O, I, D, H, W) and
-(out, in).
+with int8 decode weights; `vae_from_bundle` does the same for the VAE.
+`load_flax_variables` / `flax_variables` carry the modules that keep
+torch's layouts under flax's tree names both ways (the VAE with its
+buffers, the discriminator with its batch_stats): flax's conv `kernel`
+(DHWIO / HWIO) and Dense kernel (in, out) are torch's `weight` (O, I, D, H,
+W) / (O, I, H, W) and (out, in), a norm's `scale` is its `weight`; so a VAE
+trained by the port is saved in the JAX package's tree.
 """
 from __future__ import annotations
 
@@ -116,19 +119,70 @@ def jax_variables(model: torch.nn.Module) -> dict:
             "buffers": _nest((n, _host(t)) for n, t in model.named_buffers())}
 
 
+# flax kernel layouts (DHWIO, HWIO, (in, out)) -> torch's, by rank
+_TO_TORCH = {5: (4, 3, 0, 1, 2), 4: (3, 2, 0, 1), 2: (1, 0)}
+_TO_FLAX = {5: (2, 3, 4, 1, 0), 4: (2, 3, 1, 0), 2: (1, 0)}
+
+
+def _torch_leaf(name: str, t: torch.Tensor):
+    """A flax leaf under the torch-layout module's name: a `kernel` becomes
+    a `weight` in torch's layout, a norm's `scale` its `weight`."""
+    head, _, leaf = name.rpartition(".")
+    if leaf == "kernel":
+        return f"{head}.weight", t.permute(_TO_TORCH[t.ndim])
+    if leaf == "scale":
+        return f"{head}.weight", t
+    return name, t
+
+
+def _flax_leaf(name: str, t: torch.Tensor):
+    """The inverse of _torch_leaf: a weight of rank >= 2 is a kernel, of rank
+    1 a norm's scale."""
+    head, _, leaf = name.rpartition(".")
+    if leaf == "weight":
+        return ((f"{head}.kernel", t.permute(_TO_FLAX[t.ndim])) if t.ndim >= 2
+                else (f"{head}.scale", t))
+    return name, t
+
+
 @torch.no_grad()
-def load_vae_variables(vae: torch.nn.Module, variables) -> torch.nn.Module:
-    """Copy a flax VAE variables tree into the port's VAE: `kernel` leaves
-    become `weight`, DHWIO conv kernels (O, I, D, H, W) and (in, out) Dense
-    kernels (out, in); biases, the logvar multiplier and the Fourier
-    buffers keep their names and layouts."""
+def load_flax_variables(module: torch.nn.Module, variables,
+                        what: str = "flax bridge") -> torch.nn.Module:
+    """Copy a flax variables tree ("params" and "buffers" or
+    "batch_stats") into a torch-layout module of the same tree names (the
+    VAE, the discriminator): `kernel` leaves become `weight`, DHWIO / HWIO
+    conv kernels torch's (O, I, D, H, W) / (O, I, H, W) and (in, out) Dense
+    kernels (out, in); a norm's `scale` becomes its `weight`; biases,
+    scalars, buffers and batch statistics keep their names and layouts."""
     state = {}
-    for name, t in state_from_jax(variables).items():
-        if name.endswith(".kernel"):
-            name = name[:-len("kernel")] + "weight"
-            t = t.permute(4, 3, 0, 1, 2) if t.ndim == 5 else t.t()
-        state[name] = t.contiguous()
-    return _load_state(vae, state, "VAE bridge")
+    for collection in ("params", "buffers", "batch_stats"):
+        for name, val in _flatten(variables.get(collection, {})):
+            name, t = _torch_leaf(name, leaf_tensor(val))
+            state[name] = t.contiguous()
+    return _load_state(module, state, what)
+
+
+def flax_variables(module: torch.nn.Module, buffers: str = "buffers") -> dict:
+    """The inverse of load_flax_variables: {"params": tree, buffers: tree}
+    of fp32 numpy copies in flax's names and layouts. buffers names the
+    collection of the module's buffers: "buffers" for the VAE's Fourier
+    features, "batch_stats" for the discriminator's running statistics."""
+    def tree(named):
+        return _nest((n, _host(t.contiguous())) for n, t in
+                     (_flax_leaf(n, t) for n, t in named))
+    return {"params": tree(module.named_parameters()), buffers: tree(module.named_buffers())}
+
+
+def to_flax_names(named) -> dict:
+    """{flax path joined by "/": fp32 numpy array} from {torch name: tensor}
+    of a torch-layout module (its parameters, their .grad, optimizer
+    moments), in flax's layouts; None entries are left out."""
+    out = {}
+    for name, t in named.items():
+        if t is not None:
+            name, t = _flax_leaf(name, t.detach())
+            out[name.replace(".", "/")] = _host(t.contiguous())
+    return out
 
 
 def _config_kwargs(kwargs: dict) -> dict:
@@ -174,7 +228,7 @@ def vae_from_bundle(path, device="cuda"):
     dev = resolve_device(device)
     kwargs, variables, extra = load_model(path, with_extra=True)
     vae = VAE(VAEConfig(**_config_kwargs(kwargs)))
-    load_vae_variables(vae, variables)
+    load_flax_variables(vae, variables, "VAE bridge")
     return vae.to(dev).eval(), extra
 
 

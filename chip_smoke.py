@@ -138,6 +138,25 @@ Phases, each of which fails the run with a non-zero exit:
      with 17 Blocks a denoiser call and 6 prefill launches a prefill, MSE
      finite, a uint8 PNG; then the cached denoiser call timed and profiled.
      Its launches join the kernels line.
+ 12. VAE training (gym_vae_train, cs_vae_train, cs_vae_adversarial,
+     calibrate_lpips) in a directory under build/ that it removes: (a) one
+     gym VAE + discriminator step (32 px, 8 frames, batch 2) card against
+     CPU from the same seeded weights, t and noise injected: float64 holds
+     losses, every gradient, the parameters and batch_stats at 3e-4; fp32
+     (TF32 off) holds the losses, the VAE's gradients and batch_stats and
+     records the discriminator's; (b) gym_vae_train --synthetic at its full
+     configuration (256 px, 32 frames, batch 4) for 6 steps: step ms,
+     clips/s, peak MB, one profiled step's launches and busy share, and
+     whether --remat was needed (run without; on running out of device
+     memory, again with it); the bundle read by vae_from_bundle and decoded,
+     and served by generate --vae for one rollout; (c) cs_vae_train
+     --synthetic at the full VAE (3, 32, 128, 512, 8) at 256 px, clip 32
+     and batch 2, else the first of clip 32 x batch 1, 16 x 2 and 16 x 1
+     that fits (the cuts printed) for 3 steps, then
+     cs_vae_adversarial --vae <its bundle> for 2 steps, with step ms, peak
+     MB and the perceptual branch; calibrate_lpips --out and
+     alexnet_lpips_loss timed at 256 px on its params. The served
+     rollout's launches join the kernels line.
 Then it prints the `kernels` JSON line, the nvidia-smi line and, last,
 {"ok": true, "device": {...}}. It exits non-zero, printing no result, when
 no CUDA device is present or the port's package is not beside it.
@@ -2357,6 +2376,335 @@ def cs_phase(fa, fc, model_channels=128, n_clips=8, clip_frames=CS_CLIP_FRAMES,
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase 12: VAE training (gym_vae_train, cs_vae_train, cs_vae_adversarial,
+# calibrate_lpips), end to end
+
+VAE_FRAME = 256       # px: both VAE scripts' default frame size
+GYM_VAE_STEPS = 6     # step 0 is the warm-up
+CS_VAE_STEPS, ADV_STEPS = 3, 2
+
+
+def leaf_errs(got: dict, want: dict) -> dict:
+    """{leaf: rms(diff) / scale}: the scale is the leaf's rms, at least 1%
+    of the whole tree's, or the whole tree's for a leaf below 0.1% of it
+    (the gradient of a bias ahead of a train-mode BatchNorm, 0 in exact
+    arithmetic); tests/test_torch_vae_train.py holds the same measure."""
+    import numpy as np
+
+    def rms(a):
+        return float(np.sqrt(np.mean(np.square(np.asarray(a, np.float64)))))
+
+    whole = rms(np.concatenate([np.ravel(v) for v in want.values()]))
+    out = {}
+    for k, w in want.items():
+        r = rms(w)
+        scale = whole if r < 1e-3 * whole else max(r, 1e-2 * whole)
+        out[k] = rms(np.asarray(got[k], np.float64) - w) / scale
+    return out
+
+
+def vae_step_parity(frame_size=32, clip=8, batch=2):
+    """(a) One gym_vae_train step (VAE update, noise-free decode, one
+    discriminator step in train mode) on the card against the same step on
+    the CPU, from the same seeded weights with t and the latent noise
+    injected: in float64 every loss, gradient (before the clip), parameter
+    and batch_stats leaf is held at 3e-4; in fp32 (TF32 off) the losses,
+    the VAE's gradients and the batch_stats are held, and the
+    discriminator's gradients are recorded beside the bound: they read the
+    VAE just updated, and there fp32 scatters up to 8.7e-4 between two
+    correct implementations (tests/test_torch_vae_train.py)."""
+    import numpy as np
+    from autoregressive_diffusion_tpu_torch import gym_vae_train
+    from autoregressive_diffusion_tpu_torch.data import SyntheticVideoGenerator, batched
+    from autoregressive_diffusion_tpu_torch.utils import flax_variables, to_flax_names
+
+    frames = next(batched(SyntheticVideoGenerator(clip, frame_size, 4, 4, batch, seed=5), batch))[0]
+    rng = np.random.default_rng(6)
+    t = rng.uniform(size=(batch,)) * 0.1
+    noise = rng.normal(size=(batch, clip // 4, frame_size // 4, frame_size // 4, 8))
+    argv = ["--synthetic", "--frame-size", str(frame_size), "--state-size", str(clip),
+            "--batch", str(batch), "--steps", "3"]
+    failures, rows = [], {}
+    for dtype in (torch.float64, torch.float32):
+        res = {}
+        for dev in (DEV, "cpu"):
+            tr = gym_vae_train.build_trainer(gym_vae_train.parse_args(argv + ["--device", dev]))
+            tr.vae.to(dtype)
+            tr.disc.to(dtype)
+            grads = {}
+            for name, tx, mod in (("vae", tr.tx_vae, tr.vae), ("disc", tr.tx_disc, tr.disc)):
+                def spy(opt, count, update=tx.update, mod=mod, name=name):
+                    grads[name] = to_flax_names({n: p.grad if p.grad is not None
+                                                 else torch.zeros_like(p)
+                                                 for n, p in mod.named_parameters()})
+                    return update(opt, count)
+                tx.update = spy
+            m = gym_vae_train.train_step(tr, frames, torch.tensor(t, dtype=dtype),
+                                         torch.tensor(noise, dtype=dtype))
+            tv, td = flax_variables(tr.vae), flax_variables(tr.disc, "batch_stats")
+            res[dev] = dict(metrics=m.cpu().double().numpy(), grads=grads,
+                            params={**{"vae/" + k: v for k, v in flat_tree(tv["params"]).items()},
+                                    **{"disc/" + k: v for k, v in flat_tree(td["params"]).items()}},
+                            stats=flat_tree(td["batch_stats"]))
+        c, g = res[DEV], res["cpu"]
+        errs = dict(metrics=float(np.max(np.abs(c["metrics"] / g["metrics"] - 1))),
+                    vae_grads=max(leaf_errs(c["grads"]["vae"], g["grads"]["vae"]).values()),
+                    disc_grads=max(leaf_errs(c["grads"]["disc"], g["grads"]["disc"]).values()),
+                    batch_stats=max(leaf_errs(c["stats"], g["stats"]).values()),
+                    params=max(float(np.std(c["params"][k] - g["params"][k]))
+                               for k in g["params"]))
+        held = (("metrics", "vae_grads", "disc_grads", "batch_stats", "params")
+                if dtype == torch.float64 else ("metrics", "vae_grads", "batch_stats"))
+        ok = all(errs[k] <= TOL_GRAD for k in held)
+        name = str(dtype).removeprefix("torch.")
+        log(f"# vae-train step card vs CPU {name}: {batch} clips of {clip} frames at "
+            f"{frame_size} px; losses (recon, kl, adv, disc) rel {errs['metrics']:.2e}, VAE grads "
+            f"{errs['vae_grads']:.2e}, discriminator grads {errs['disc_grads']:.2e}, batch_stats "
+            f"{errs['batch_stats']:.2e}, params after std(diff) {errs['params']:.2e}; held at "
+            f"{TOL_GRAD:.0e}: {', '.join(held)} ok={ok}")
+        if not ok:
+            failures.append(f"vae-train step card vs CPU ({name})")
+        rows[name] = errs
+    return failures, rows
+
+
+def flat_tree(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flat_tree(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def timed_loop(loop, tr, loader, n_steps):
+    """Run a script's train_loop, each step synchronised: (its
+    {step: ms}, peak device MB)."""
+    marks = []
+
+    def on_step(i, _):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    path = loop(tr, loader, on_step=on_step)
+    torch.cuda.synchronize()
+    ms = [(b - a) * 1e3 for a, b in zip([t0] + marks[:-1], marks)]
+    if len(ms) != n_steps:
+        raise RuntimeError(f"{len(ms)} steps ran, {n_steps} asked")
+    return path, ms, torch.cuda.max_memory_allocated() / 2 ** 20
+
+
+def step_summary(ms):
+    warm = ms[1:] or ms
+    return dict(step_ms=ms, warm_mean_ms=sum(warm) / len(warm))
+
+
+def vae_train_phase(fa, fc, frame_size=VAE_FRAME, gym_clip=32, gym_batch=4,
+                    cs_cuts=((32, 2), (32, 1), (16, 2), (16, 1)), cs_small=False):
+    """Phase 12, in a directory under build/ that is removed afterwards:
+    (a) vae_step_parity; (b) gym_vae_train --synthetic at frame_size px,
+    gym_clip frames, batch gym_batch for 6 steps (step 0 the warm-up): step
+    ms, clips/s, peak MB, one profiled step's launches and busy share, and
+    whether --remat was needed (run without; on running out of device
+    memory, again with it); its bundle read by vae_from_bundle, a latent
+    clip decoded, and generate --vae serving it for one rollout of the
+    seeded gym denoiser; (c) cs_vae_train --synthetic at the full VAE for 3
+    steps at the first (clip, batch) of cs_cuts that fits, then
+    cs_vae_adversarial --vae <its bundle> for 2 steps, and alexnet_lpips_loss
+    timed on the params that calibrate_lpips --out writes. Every kernel
+    launch counter is zeroed before and read after; this path's training
+    launches none, the served rollout launches the serving kernels.
+    Returns (failures, summary, launches)."""
+    import contextlib
+    import io
+    import numpy as np
+    from autoregressive_diffusion_tpu_torch import (calibrate_lpips, cs_vae_adversarial,
+                                                    cs_vae_train, generate, gym_vae_train)
+    from autoregressive_diffusion_tpu_torch.train import perceptual
+    from autoregressive_diffusion_tpu_torch.utils import vae_from_bundle
+    from autoregressive_diffusion_tpu_torch.utils.profiling import window_summary
+
+    def counts():
+        return dict(conv_fwd=fc.conv_fwd_launches, conv_bwd=fc.conv_bwd_launches,
+                    block=fc.launches, prefill=fa.launches,
+                    **{n.removesuffix("_launches"): getattr(fa, n) for n in FLASH_COUNTERS})
+
+    fc.conv_fwd_launches = fc.conv_bwd_launches = fc.launches = fa.launches = 0
+    zero_flash_counts(fa)
+    t_phase = time.perf_counter()
+    work = ROOT / "build" / f"vae_train_phase_{int(time.time() * 1e3)}"
+    summary = {}
+    try:
+        # (a) card against CPU
+        failures, summary["parity"] = vae_step_parity()
+        torch.cuda.empty_cache()
+
+        # (b) the gym VAE at its full configuration
+        gym_dir = work / "gym"
+        base = ["--synthetic", "--frame-size", str(frame_size), "--state-size", str(gym_clip),
+                "--batch", str(gym_batch), "--steps", str(GYM_VAE_STEPS), "--ckpt-dir",
+                str(gym_dir), "--out-dir", str(gym_dir), "--device", DEV]
+        for remat in (False, True):
+            args = gym_vae_train.parse_args(base + (["--remat"] if remat else []))
+            tr = gym_vae_train.build_trainer(args)
+            loader, _ = gym_vae_train.make_loader(args)
+            try:
+                with contextlib.redirect_stdout(io.StringIO()) as text:
+                    bundle, ms, peak = timed_loop(
+                        lambda tr, ld, on_step: gym_vae_train.train_loop(tr, ld, None, on_step),
+                        tr, loader, GYM_VAE_STEPS)
+                break
+            except torch.cuda.OutOfMemoryError as e:
+                if remat:
+                    raise
+                log(f"# vae-train gym: out of device memory without --remat ({str(e)[:120]}); "
+                    f"again with --remat")
+                del tr, loader
+                torch.cuda.empty_cache()
+        log(text.getvalue().strip())
+        frames = next(iter(gym_vae_train.make_loader(args)[0]))[0]
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            gym_vae_train.train_step(tr, frames)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        prof_row = window_summary(prof, wall, 1)
+        hist = {k: v[-1] for k, v in tr.history.items()}
+        s = step_summary(ms)
+        clips_s = gym_batch * 1e3 / s["warm_mean_ms"]
+        ok = (all(np.isfinite(v) for v in hist.values()) and tr.count == GYM_VAE_STEPS + 1
+              and Path(bundle).exists())
+        log(f"# vae-train gym: VAE(3, 8, 8, 8) + MixedDiscriminator, batch {gym_batch} x "
+            f"{gym_clip} frames x {frame_size} px, fp32; step ms {[round(x, 1) for x in ms]} "
+            f"(step 0 the warm-up), warm mean {s['warm_mean_ms']:.1f} ms = {clips_s:.3f} clips/s; "
+            f"peak {peak:.1f} MB; --remat needed: {remat}; one profiled step: "
+            f"{prof_row['kernel_launches']:.0f} launches, busy {prof_row['device_busy_ms']:.1f} of "
+            f"{prof_row['wall_ms']:.1f} ms (idle {prof_row['device_idle_share']:.1%}), top "
+            f"{prof_row['top_device_ms'][:3]}; last losses {hist} ok={ok}")
+        if not ok:
+            failures.append("vae-train gym steps")
+        summary["gym"] = dict(s, clips_per_s=clips_s, peak_mb=peak, remat=remat,
+                              profiled=prof_row, losses=hist)
+        del tr
+        torch.cuda.empty_cache()
+
+        vae, _ = vae_from_bundle(bundle, DEV)
+        z = torch.randn((1, gym_clip // 4, frame_size // 4, frame_size // 4, 8),
+                        generator=torch.Generator(device=DEV).manual_seed(7), device=DEV)
+        with torch.no_grad():
+            dec = vae.decode(z, torch.full((1,), 0.1, device=DEV))[0]
+        png = work / "served.png"
+        with contextlib.redirect_stdout(io.StringIO()) as text:
+            generate.main(["--vae", str(bundle), "--context-frames", "2", "--gen-frames", "1",
+                           "--bench-iters", "3", "--out", str(png), "--device", DEV])
+        served = json.loads(text.getvalue().strip().splitlines()[-1])
+        ok = (tuple(dec.shape) == (1, gym_clip, frame_size, frame_size, 3)
+              and bool(torch.isfinite(dec).all()) and served["frames_finite"]
+              and served["decoded_shape"][-3:] == [frame_size, frame_size, 3]
+              and png.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n")
+        log(f"# vae-train gym bundle: {Path(bundle).name} {Path(bundle).stat().st_size} B, "
+            f"vae_from_bundle decodes {tuple(z.shape)} -> {tuple(dec.shape)}; generate --vae: "
+            f"latents {served['frames_shape']} decoded {served['decoded_shape']} in "
+            f"{served['vae_decode_ms']:.2f} ms, PNG {png.stat().st_size} B ok={ok}")
+        if not ok:
+            failures.append("vae-train gym bundle served")
+        summary["served"] = served
+        del vae, dec
+        torch.cuda.empty_cache()
+
+        # (c) the CS VAE, then its adversarial finetune
+        cs_dir = work / "cs"
+        kind = perceptual.perceptual_kind(3)
+        cuts = []
+        for clip, batch in cs_cuts:
+            args = cs_vae_train.parse_args(
+                ["--synthetic", "--steps", str(CS_VAE_STEPS), "--clip-size", str(clip),
+                 "--batch", str(batch), "--frame-size", str(frame_size), "--ckpt-dir",
+                 str(cs_dir), "--device", DEV] + (["--small"] if cs_small else []))
+            tr = cs_vae_train.build_trainer(args)
+            try:
+                with contextlib.redirect_stdout(io.StringIO()) as text:
+                    cs_bundle, cs_ms, cs_peak = timed_loop(
+                        cs_vae_train.train_loop, tr, cs_vae_train.frame_batches(args),
+                        CS_VAE_STEPS)
+                break
+            except torch.cuda.OutOfMemoryError as e:
+                cuts.append(f"clip {clip} x batch {batch}: out of device memory "
+                            f"({str(e)[:100]})")
+                log(f"# vae-train cs: {cuts[-1]}")
+                del tr
+                torch.cuda.empty_cache()
+        else:
+            raise RuntimeError(f"the CS VAE fits none of {cs_cuts}")
+        log(text.getvalue().strip())
+        n_params = sum(p.numel() for p in tr.vae.parameters())
+        last_lr = float(tr.opt.param_groups[0]["lr"])
+        del tr
+        torch.cuda.empty_cache()
+        s = step_summary(cs_ms)
+        log(f"# vae-train cs: VAE{tuple(cs_vae_train.vae_config(cs_small).channels)} "
+            f"({n_params / 1e6:.2f}M params), batch {batch} x {clip} frames x {frame_size} px "
+            f"(cuts: {cuts or 'none'}), perceptual loss {kind}; step ms "
+            f"{[round(x, 1) for x in cs_ms]}, warm mean {s['warm_mean_ms']:.1f} ms; peak "
+            f"{cs_peak:.1f} MB; last lr {last_lr:.3e}")
+        summary["cs"] = dict(s, clip=clip, batch=batch, cuts=cuts, peak_mb=cs_peak,
+                             perceptual=kind, params=n_params)
+
+        adv_args = cs_vae_adversarial.parse_args(
+            ["--synthetic", "--vae", str(cs_bundle), "--steps", str(ADV_STEPS), "--frame-size",
+             str(frame_size), "--ckpt-dir", str(cs_dir), "--device", DEV])
+        tr = cs_vae_adversarial.build_trainer(adv_args)
+        with contextlib.redirect_stdout(io.StringIO()) as text:
+            adv_bundle, adv_ms, adv_peak = timed_loop(
+                cs_vae_adversarial.train_loop, tr, cs_vae_train.frame_batches(adv_args),
+                ADV_STEPS)
+        log(text.getvalue().strip())
+        ok = Path(adv_bundle).exists() and tr.count == ADV_STEPS
+        del tr
+        torch.cuda.empty_cache()
+        s = step_summary(adv_ms)
+        log(f"# vae-train cs adversarial: --vae {Path(cs_bundle).name}, batch "
+            f"{adv_args.batch} x {adv_args.clip_size} frames x {frame_size} px, step ms "
+            f"{[round(x, 1) for x in adv_ms]}, peak {adv_peak:.1f} MB ok={ok}")
+        if not ok:
+            failures.append("vae-train cs adversarial")
+        summary["cs_adversarial"] = dict(s, clip=adv_args.clip_size, batch=adv_args.batch,
+                                         peak_mb=adv_peak)
+
+        cal = work / "lpips_calibrated.npz"
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as text:
+            params = calibrate_lpips.main(["--out", str(cal), "--device", DEV])
+        cal_s = time.perf_counter() - t0
+        log(text.getvalue().strip())
+        on_dev = perceptual.lpips_params_to(params, DEV)
+        g = torch.Generator(device=DEV).manual_seed(8)
+        shape = (1, adv_args.clip_size, frame_size, frame_size, 3)
+        x, y = (torch.rand(shape, generator=g, device=DEV) * 2 - 1 for _ in range(2))
+        lpips_ms = time_ms(lambda: perceptual.alexnet_lpips_loss(x, y, on_dev), iters=5, warmup=1)
+        val = float(perceptual.alexnet_lpips_loss(x, y, on_dev))
+        ok = np.isfinite(val)
+        log(f"# vae-train lpips: calibrate_lpips --out in {cal_s:.1f} s; alexnet_lpips_loss on "
+            f"{shape} {lpips_ms:.2f} ms a call (CUDA events), value {val:.4f} ok={ok}")
+        if not ok:
+            failures.append("vae-train lpips")
+        summary["lpips"] = dict(calibrate_s=cal_s, loss_ms=lpips_ms, shape=list(shape))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    launches = counts()
+    summary["seconds"] = time.perf_counter() - t_phase
+    log(f"# vae-train phase: {summary['seconds']:.1f} s, launches {launches} (the served "
+        f"rollout's; the training steps launch no port kernel)")
+    return failures, summary, launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None, help="also write the detailed results here")
@@ -2534,6 +2882,17 @@ def main(argv=None):
     train_flash = tuple(t + cs_launches.get(k, 0) for t, k in
                         zip(train_flash, ("dart_fwd", "dart_bwd", "full_fwd", "full_bwd")))
 
+    # phase 12: VAE training (gym_vae_train, cs_vae_train, cs_vae_adversarial)
+    torch.cuda.empty_cache()
+    vae_failures, vae_summary, vae_launches = vae_train_phase(fa, fc)
+    failures += vae_failures
+    launches_a += vae_launches["prefill"]
+    launches_b += vae_launches["block"]
+    launches_cf += vae_launches["conv_fwd"]
+    launches_cb += vae_launches["conv_bwd"]
+    train_flash = tuple(t + vae_launches[k] for t, k in
+                        zip(train_flash, ("dart_fwd", "dart_bwd", "full_fwd", "full_bwd")))
+
     # the kernels line: main-path shapes in the main path's dtype (bf16)
     main_attn = next(r for r in attn_rows
                      if r["dtype"] == "bfloat16" and r["case"] == "ring off=0 t=8 F=64")
@@ -2614,9 +2973,10 @@ def main(argv=None):
     log("# launches of prefill_attention, decode_block and full_attention_fwd count the "
         "rollouts of phases 5 and 9 (seeded random, r3 bf16, r3 int8) and the training steps; "
         "every row also counts phase 10 (the gym training path, its sampler callback, the "
-        "resume and replay steps and the served export) and phase 11 (the CS path: its "
+        "resume and replay steps and the served export), phase 11 (the CS path: its "
         "training steps, the card-against-CPU check, the probe, the rollout and the timed "
-        "denoiser calls)")
+        "denoiser calls) and phase 12 (the rollout that serves the trained VAE; VAE training "
+        "launches no port kernel)")
     log("# decode_block ms/plain_ms/bound_ms are sums over the 17 Blocks of one denoiser "
         "call; prefill_attention's are at the first prefill (t_new=8, f_total=64); the "
         "ms and library_ms of both are device times (library: F.scaled_dot_product_attention "
@@ -2644,7 +3004,8 @@ def main(argv=None):
                       sp_path=[dict(rank=r["rank"], small_losses=r["small"]["losses"],
                                     **{k: v for k, v in r["gym"].items()})
                                for r in sp_ranks],
-                      gym=gym_summary, cs=cs_summary, cs_kernels=cs_kernels)
+                      gym=gym_summary, cs=cs_summary, cs_kernels=cs_kernels,
+                      vae_train=vae_summary)
         Path(args.out).write_text(json.dumps(detail, indent=1))
 
     log(f"# total {time.perf_counter() - t_start:.1f} s")

@@ -264,15 +264,30 @@ def test_cs_eval_suite_runs_the_probe_and_the_rollout_on_one_restore(tmp_path, m
     assert res["rollout"]["clips"] == 2 and np.isfinite(res["rollout"]["mse"]).all()
 
 
-def test_cs_train_over_two_ranks_equals_one_process(tmp_path):
+@pytest.mark.parametrize("data", ["synthetic", "shards"])
+def test_cs_train_over_two_ranks_equals_one_process(tmp_path, data):
     """cs_train --sp 2 on two gloo ranks (each clip's frames split) takes
     the steps one process takes: the same losses and weights, within the
-    SP tests' rtol of 2e-4."""
+    SP tests' rtol of 2e-4. With --shards every rank must read the same
+    global batch (the windows in the seed's order), as the one process
+    does."""
     import test_torch_sp_workers as workers
+    from autoregressive_diffusion_tpu_torch.data import write_latent_shard
     from autoregressive_diffusion_tpu_torch.parallel import run_local_ranks
 
-    argv = TINY + ["--batch", "2", "--micro-batch", "2", "--clip-size", "4", "--steps", "2",
-                   "--synthetic", "--use-actions", "--backend", "gloo", "--sp", "2"]
+    if data == "shards":
+        shards = tmp_path / "shards"
+        shards.mkdir()
+        rng = np.random.default_rng(11)
+        for i in range(6):  # 2 windows of 4 frames a shard
+            write_latent_shard(str(shards / f"clip_{i:02d}.npz"),
+                               rng.normal(size=(8, 32, 32, 8)).astype(np.float32),
+                               rng.integers(0, 4, size=(8,)))
+        source = ["--shards", str(shards)]
+    else:
+        source = ["--synthetic"]
+    argv = TINY + ["--batch", "2", "--micro-batch", "2", "--clip-size", "4", "--steps", "3",
+                   *source, "--use-actions", "--backend", "gloo", "--sp", "2"]
     ranks = run_local_ranks(workers.cs_train_run, 2,
                             (argv + ["--ckpt-dir", str(tmp_path / "ranks")],), timeout=300)
     one = cs_train.main(argv[:-2] + ["--ckpt-dir", str(tmp_path / "one")])
@@ -281,7 +296,7 @@ def test_cs_train_over_two_ranks_equals_one_process(tmp_path):
         np.testing.assert_allclose(losses, one.losses, rtol=2e-4)
         for n, v in sums.items():
             assert abs(rank_sums[n] - v) <= 2e-4 * max(1.0, abs(v)), n
-    assert latest_step(tmp_path / "ranks") == 2  # written by rank 0
+    assert latest_step(tmp_path / "ranks") == 3  # written by rank 0
 
 
 def test_cs_entry_points_refuse_what_is_not_ported(monkeypatch):

@@ -54,6 +54,13 @@ def test_import_leaves_jax_out():
             "import autoregressive_diffusion_tpu_torch.cs_rollout\n"
             "import autoregressive_diffusion_tpu_torch.context_probe\n"
             "import autoregressive_diffusion_tpu_torch.cs_eval_suite\n"
+            "import autoregressive_diffusion_tpu_torch.models.discriminator\n"
+            "import autoregressive_diffusion_tpu_torch.models.stability\n"
+            "import autoregressive_diffusion_tpu_torch.train.perceptual\n"
+            "import autoregressive_diffusion_tpu_torch.gym_vae_train\n"
+            "import autoregressive_diffusion_tpu_torch.cs_vae_train\n"
+            "import autoregressive_diffusion_tpu_torch.cs_vae_adversarial\n"
+            "import autoregressive_diffusion_tpu_torch.calibrate_lpips\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
             "       or m == 'flax' or m.startswith('flax.') or m == 'optax'\n"
             "       or m == 'orbax' or m.startswith('orbax.')\n"
