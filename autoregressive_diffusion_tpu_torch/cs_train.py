@@ -37,7 +37,7 @@ every rank reads the same global batch and takes its slice, the metrics
 are global, and rank 0 alone writes checkpoints. --mds and --shards are
 read in order on every rank (no worker threads), so the ranks draw the
 same windows from the same seed. --tp and --fsdp are not
-ported (ROADMAP.md, Queue 1 item 7) and raise.
+ported (ROADMAP.md, Queue 1 item 4) and raise.
 """
 from __future__ import annotations
 
@@ -84,9 +84,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--clip-size", type=int, default=16, help="latent frames a clip")
     ap.add_argument("--shards", default=None, help="local .npz latent shard directory")
     ap.add_argument("--mds", default=None, help="local MDS dataset directory")
-    ap.add_argument("--tp", type=int, default=1, help="tensor parallelism (not ported)")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor parallelism (not ported: ROADMAP.md, Queue 1 item 4)")
     ap.add_argument("--fsdp", action="store_true", help="fully sharded data parallelism "
-                    "(not ported)")
+                    "(not ported: ROADMAP.md, Queue 1 item 4)")
     ap.add_argument("--sp", type=int, default=1,
                     help="sequence parallelism: each clip's frames split over SP ranks")
     ap.add_argument("--backend", choices=("nccl", "gloo"), default="nccl",
@@ -105,7 +106,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--dtype", choices=sorted(DTYPES), default="bf16", help="body dtype")
     args = ap.parse_args(argv)
     if args.tp != 1 or args.fsdp:
-        ap.error("--tp and --fsdp are not ported (ROADMAP.md, Queue 1 item 7)")
+        ap.error("--tp and --fsdp are not ported (ROADMAP.md, Queue 1 item 4)")
     return args
 
 

@@ -14,11 +14,13 @@ inverse-sqrt schedule (ref_lr 1e-2, ramp-up and reference step steps/50),
 batch 16 in microbatches of 8, a just_2d step every 4th step, two
 power-function EMA copies. Every `--dashboard-every` steps the loss weight
 is refitted into the train state's coefs, the sampler callback runs on the
-training model and its rollout is decoded to a PNG strip (the JAX
-package's matplotlib panel is not drawn); every `--ckpt-every` steps (and
-at the end of the run) the raw weights go to `unet_{n}M.ad` and the train
-state to `step_{step:09d}/` (three kept); `--resume` continues from the
-newest; SIGTERM writes a checkpoint and exits.
+training model and its rollout is decoded to a PNG strip, and where
+matplotlib is installed the JAX script's dashboard is drawn beside it
+(dashboard_step_{i}.png: loss against sigma with the fit, the loss
+history, the sampler's MSE a step, the rollout); every `--ckpt-every`
+steps (and at the end of the run) the raw weights go to `unet_{n}M.ad`
+and the train state to `step_{step:09d}/` (three kept); `--resume`
+continues from the newest; SIGTERM writes a checkpoint and exits.
 
 Data: LunarLander clips from gymnasium (256 px), or with --synthetic the
 moving-square clips (64 px, as in the JAX script), streamed in batches by
@@ -55,6 +57,7 @@ from .train import (ClippedAdamW, MultiNoiseState, create_train_state,
                     learning_rate_schedule, make_optimizer, make_replay_train_step,
                     make_train_step, step_seed)
 from .train.cli import DTYPES, GYM_LOSS, TINY_CONFIG
+from .utils import plotting
 from .utils.bridge import jax_variables, vae_from_bundle
 from .utils.checkpoint import (latest_step, restore_train_state, save_model, save_train_state,
                                wait_for_pending_saves)
@@ -192,7 +195,14 @@ class GymTrainer:
         frames = self.decode(roll)[0].cpu().numpy()
         path = Path(self.args.out_dir) / f"rollout_step_{i}.png"
         write_png(path, np.concatenate(list(frames), axis=1))
-        return dict(seconds=time.perf_counter() - t0, mse_steps=mse_steps, png=str(path))
+        dash = None
+        if plotting.have_matplotlib():
+            dash = str(Path(self.args.out_dir) / f"dashboard_step_{i}.png")
+            plotting.plot_training_dashboard(
+                dash, self.losses, i, self.noise_state, self.state.coefs.cpu().numpy(),
+                mse_steps=mse_steps, rollout_frames=frames, unet_params=self.n_params)
+        return dict(seconds=time.perf_counter() - t0, mse_steps=mse_steps, png=str(path),
+                    dashboard=dash)
 
     def checkpoint(self, i: int, block: bool = False) -> Path:
         """The raw weights as unet_{n}M.ad and the train state (three kept);

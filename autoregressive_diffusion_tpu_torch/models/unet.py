@@ -13,11 +13,20 @@ folded in, and video attention is DART flash attention. Under a
 sequence-parallel context (ops/flash_attention.set_sp_context) x holds one
 seq rank's frames, and the rank's frame offset in the clip reaches every
 Block as `frames`, so gates and RoPE see global positions. The TPU
-packed-chain planner and its lane layout are not carried over; dropout is
-not ported (every configuration has 0) and a non-zero value raises, and so
-does remat in train mode (per-Block rematerialization; in eval it changes
-nothing). cfg.decode_quant serves int8 decode weights (every MPConv and
-MPCausalConv3d, models/layers.py) and int8 K/V rings, in eval mode only.
+packed-chain planner and its lane layout are not carried over.
+
+Train-mode dropout (cfg.dropout > 0) sits between a Block's two convs, as in
+the original: conv_res0 stays fused, then y * c, mp_silu and the dropout run
+in torch, and conv_res1 runs the fused conv with no input transform. Its
+keep masks come from the explicit generator the caller passes
+(`dropout_generator`); UNet.dropout_mask draws them, one per Block, before
+the Block runs. cfg.remat runs every Block of a train-mode call under
+torch.utils.checkpoint (JAX's nn.remat(Block)): its activations are
+recomputed in the backward, the conv and attention kernels launched again,
+and the recomputed Block reads the mask drawn before it, so the gradients
+equal the plain ones. cfg.decode_quant serves int8 decode weights (every
+MPConv and MPCausalConv3d, models/layers.py) and int8 K/V rings, in eval
+mode only.
 """
 from __future__ import annotations
 
@@ -28,6 +37,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.flash_attention import sp_context
 from ..ops.fused_conv import fused_decode_block
@@ -57,7 +67,7 @@ class UNetConfig:
     clip_act: float = 256.0
     dropout: float = 0.0
     max_frames: int = 64
-    remat: bool = False         # train-mode memory/FLOPs trade; not ported
+    remat: bool = False         # recompute each Block in the backward (train mode)
     decode_quant: bool = False  # int8 decode weights and K/V (train/quantize.py)
 
     @property
@@ -149,9 +159,10 @@ class Block(nn.Module):
                  attention: Optional[str] = None, channels_per_head: int = 64,
                  res_balance: float = 0.3, attn_balance: float = 0.3,
                  clip_act: Optional[float] = 256.0, max_frames: int = 64,
-                 quant: bool = False):
+                 quant: bool = False, dropout: float = 0.0):
         super().__init__()
         self.out_channels = out_channels
+        self.dropout = dropout
         self.flavor = flavor
         self.resample_mode = resample_mode
         self.attention = attention
@@ -173,13 +184,16 @@ class Block(nn.Module):
 
     def forward(self, x, emb, c_noise, frames: int = 0, cache=None,
                 update_cache: bool = False, just_2d: bool = False,
-                mode: str = "eval"):
+                mode: str = "eval", dropout_mask: Optional[torch.Tensor] = None):
+        """dropout_mask: the train-mode keep mask (B, F, res, res, Co) of a
+        Block with dropout > 0 (UNet.dropout_mask)."""
         cache = cache or {}
         in_channels = x.shape[-1]
         x = resample(x, mode=self.resample_mode)
         c = self.emb_linear(emb, gain=self.emb_gain) + 1  # (B, T, Co), emb's type
         if mode == "train":
-            return self._train(x, c, c_noise, frames, just_2d, in_channels), cache
+            return self._train(x, c, c_noise, frames, just_2d, in_channels,
+                               dropout_mask), cache
         cache0, cache1 = cache.get("conv_res0"), cache.get("conv_res1")
         if (self.attention is None and x.shape[1] == 1
                 and (just_2d or (cache0 is not None and cache1 is not None))):
@@ -208,17 +222,26 @@ class Block(nn.Module):
             new_cache["attn"] = attn_cache
         return x, new_cache
 
-    def _train(self, x, c, c_noise, frames, just_2d, in_channels):
+    def _train(self, x, c, c_noise, frames, just_2d, in_channels, dropout_mask):
         """Train mode: mp_silu and the modulation by c run inside the fused
-        convs (silu_in, cvec)."""
+        convs (silu_in, cvec); with dropout they run in torch before it, and
+        conv_res1 takes the dropped activations as they are (flax's
+        nn.Dropout: kept values / keep, the rest 0)."""
         if self.flavor == "enc":
             if in_channels != self.out_channels:
                 x = self.conv_skip(x)
             x = normalize(x, dim=-1)  # pixel norm
         y, _ = self.conv_res0(x, c_noise, frames, just_2d=just_2d, mode="train",
                               silu_in=True)
-        y, _ = self.conv_res1(y, c_noise, frames, just_2d=just_2d, mode="train",
-                              silu_in=True, cvec=c)
+        if self.dropout > 0:
+            if dropout_mask is None:
+                raise ValueError("a Block with dropout needs its keep mask in train mode")
+            y = mp_silu(y * c[:, :, None, None, :].to(y.dtype))
+            y = torch.where(dropout_mask, y / (1.0 - self.dropout), 0.0)
+            y, _ = self.conv_res1(y, c_noise, frames, just_2d=just_2d, mode="train")
+        else:
+            y, _ = self.conv_res1(y, c_noise, frames, just_2d=just_2d, mode="train",
+                                  silu_in=True, cvec=c)
         if self.flavor == "dec" and in_channels != self.out_channels:
             x = self.conv_skip(x)
         x = mp_sum(x, y, t=self.res_balance)
@@ -272,19 +295,26 @@ class UNet(nn.Module):
                             channels_per_head=cfg.channels_per_head,
                             res_balance=cfg.res_balance, attn_balance=cfg.attn_balance,
                             clip_act=cfg.clip_act, max_frames=cfg.max_frames,
-                            quant=quant)
+                            quant=quant, dropout=cfg.dropout)
             self.add_module(name if side == "out" else f"{side}_{name}", mod)
+
+    def dropout_mask(self, name: str, shape, device,
+                     generator: torch.Generator) -> torch.Tensor:
+        """The keep mask of Block `name` (enc_8x8_block0, ...): True with
+        probability 1 - cfg.dropout, drawn from `generator`. The hook tests
+        replace to inject masks."""
+        return torch.rand(shape, generator=generator, device=device) < 1.0 - self.cfg.dropout
 
     def forward(self, x, c_noise, conditioning=None, cache=None,
                 update_cache: bool = False, just_2d: bool = False,
-                mode: str = "eval"):
+                mode: str = "eval", dropout_generator: Optional[torch.Generator] = None):
         cfg = self.cfg
         if mode not in ("eval", "train"):
             raise ValueError(f"unknown mode {mode!r}")
-        if mode == "train" and cfg.dropout > 0.0:
-            raise NotImplementedError("dropout is not ported: train with dropout=0")
-        if mode == "train" and cfg.remat:
-            raise NotImplementedError("remat is not ported: train with remat=False")
+        drop = mode == "train" and cfg.dropout > 0.0
+        if drop and dropout_generator is None:
+            raise ValueError("train mode with dropout > 0 draws its masks from an explicit "
+                             "generator: pass dropout_generator")
         if mode == "train" and cfg.decode_quant:
             raise ValueError("int8 weights are a decode-only path: train with "
                              "decode_quant=False")
@@ -319,8 +349,20 @@ class UNet(nn.Module):
             if spec["kind"] == "conv":
                 x, c = mod(x, c_noise, frames, sub, update_cache, just_2d, mode=mode)
             else:
-                x, c = mod(x, emb, c_noise, frames, sub, update_cache, just_2d,
-                           mode=mode)
+                mask = None
+                if drop:
+                    shape = (x.shape[0], x.shape[1], spec["res"], spec["res"], spec["cout"])
+                    mask = self.dropout_mask(f"{side}_{name}", shape, x.device,
+                                             dropout_generator)
+                if mode == "train" and cfg.remat:
+                    # the Block draws no random numbers (its mask is drawn
+                    # above), so there is no RNG state to restore
+                    x, c = checkpoint(mod, x, emb, c_noise, frames, sub, update_cache,
+                                      just_2d, mode, mask, use_reentrant=False,
+                                      preserve_rng_state=False)
+                else:
+                    x, c = mod(x, emb, c_noise, frames, sub, update_cache, just_2d,
+                               mode=mode, dropout_mask=mask)
             new_cache[side][name] = c
             if side == "enc":
                 skips.append(x)
@@ -342,7 +384,8 @@ class Precond(nn.Module):
 
     def forward(self, x, sigma, conditioning=None, cache=None,
                 update_cache: bool = False, mode: str = "eval",
-                just_2d: bool = False):
+                just_2d: bool = False,
+                dropout_generator: Optional[torch.Generator] = None):
         x = x.float()
         sigma = sigma.float()
         s = sigma[:, :, None, None, None]
@@ -352,7 +395,7 @@ class Precond(nn.Module):
         c_in = 1 / torch.sqrt(sd ** 2 + s ** 2)
         c_noise = torch.log(sigma) / 4
         f_x, cache = self.unet((c_in * x).to(self.body_dtype), c_noise, conditioning,
-                               cache, update_cache, just_2d, mode)
+                               cache, update_cache, just_2d, mode, dropout_generator)
         return c_skip * x + c_out * f_x.float(), cache
 
 

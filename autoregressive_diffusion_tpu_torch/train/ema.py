@@ -82,3 +82,16 @@ def ema_update(ema_params: dict, params: dict, beta: float) -> dict:
 def init_ema(params: dict, stds=(0.050, 0.100)) -> tuple:
     """Deep copies of the parameters, one {name: tensor} dict per EMA std."""
     return tuple({n: p.detach().clone() for n, p in params.items()} for _ in stds)
+
+
+def traditional_ema_beta(cur_nimg, batch_size, halflife_Mimg=float("inf"),
+                         rampup_ratio=0.09) -> float:
+    """The classic half-life EMA decay with rampup (the original's
+    TraditionalEMA.update): beta = 0.5 ** (batch / halflife_imgs), the
+    halflife ramped as min(halflife, nimg * rampup_ratio). Use with
+    `ema_update`. Host arithmetic in fp32, as the JAX package's jnp."""
+    f32 = np.float32
+    halflife = f32(halflife_Mimg)
+    if rampup_ratio is not None:
+        halflife = np.minimum(halflife, f32(cur_nimg) / f32(1e6) * f32(rampup_ratio))
+    return float(f32(0.5) ** (f32(batch_size) / np.maximum(halflife * f32(1e6), f32(1e-8))))

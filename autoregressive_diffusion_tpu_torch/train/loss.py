@@ -30,6 +30,12 @@ class EDM2LossConfig:
             raise ValueError("context_noise_reduction must be in [0, 1]")
 
 
+# The dropout masks of a forward call come from the generator of (seed,
+# DROPOUT_INDEX + the microbatch's first sample), the counterpart of the JAX
+# package's fold_in(key, 0x7FFFFFFF): one draw a call, not a sample.
+DROPOUT_INDEX = 0x7FFFFFFF
+
+
 def _sample_generator(seed: int, index: int, device) -> torch.Generator:
     """The generator of sample `index` under `seed` (a 63-bit mix of both)."""
     g = torch.Generator(device=device)
@@ -72,7 +78,8 @@ def edm2_loss(model, images: torch.Tensor, seed: int, cfg: EDM2LossConfig,
 
     sigma and noise are drawn per sample from generators keyed by
     (seed, sample_offset + i), so gradient accumulation over microbatch
-    slices (train_state.py) samples exactly what the full batch would.
+    slices (train_state.py) samples exactly what the full batch would;
+    dropout masks (cfg.dropout > 0) are the exception, drawn per call.
     Passing `sigma` (b, 2t or t) and `noise` (the shape of the DART concat)
     bypasses the sampling; with `sigma` alone the noise is sigma * eps from
     the generator of (seed, 0).
@@ -103,7 +110,10 @@ def edm2_loss(model, images: torch.Tensor, seed: int, cfg: EDM2LossConfig,
         eps = torch.randn(cat_images.shape, generator=_sample_generator(seed, 0, dev),
                           device=dev).to(cat_images.dtype)
         noise = sigma[:, :, None, None, None] * eps
-    out, _ = model(cat_images + noise, sigma, cond, mode="train", just_2d=just_2d)
+    drop_g = (_sample_generator(seed, DROPOUT_INDEX + sample_offset, dev)
+              if model.cfg.dropout > 0 else None)
+    out, _ = model(cat_images + noise, sigma, cond, mode="train", just_2d=just_2d,
+                   dropout_generator=drop_g)
     denoised = out[:, -t:]
     errors = (denoised - images) ** 2
     losses = errors.mean(dim=(-1, -2, -3))  # (b, t)

@@ -157,6 +157,22 @@ Phases, each of which fails the run with a non-zero exit:
      MB and the perceptual branch; calibrate_lpips --out and
      alexnet_lpips_loss timed at 256 px on its params. The served
      rollout's launches join the kernels line.
+ 13. (a) the original PyTorch repo's recorded tensors
+     (tests/reference_parity/fixtures) on the card in fp32, through the
+     kernels: the causal conv and video attention fixtures (train, just_2d,
+     prefill, decode) and the Precond loaded by the port's import_torch_3d
+     (train y and input gradient, just_2d, prefill, cached decode, the loss,
+     the 8-step sampler), at the CPU test's bounds; as the recorded Precond
+     has out_gain and emb_gain 0, the same weights with those gains 1 card
+     against CPU at 3e-4; (b) the full-width gym DART step (bf16, batch 8,
+     T=8) with dropout 0.1, without and with per-Block remat from one seed:
+     gradients within 1e-6 relative (bitwise equality reported), launches of
+     a loss + backward held (remat: every Block's convs and attention
+     forward again), step ms and peak MB of 3 steps each; (c)
+     rollout_drift on the r3 weights and the trained VAE over the committed
+     episode 0 for 8 frames: the series finite and in drift.npz, 17 decode
+     Blocks a denoiser call, 6 prefill launches a prefill. Its launches join
+     the kernels line.
 Then it prints the `kernels` JSON line, the nvidia-smi line and, last,
 {"ok": true, "device": {...}}. It exits non-zero, printing no result, when
 no CUDA device is present or the port's package is not beside it.
@@ -2705,6 +2721,391 @@ def vae_train_phase(fa, fc, frame_size=VAE_FRAME, gym_clip=32, gym_batch=4,
     return failures, summary, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the original's recorded tensors on the card, dropout and remat at
+# full width, the drift tool on the trained weights
+
+FIXTURES = ROOT / "tests" / "reference_parity" / "fixtures"
+REF_CONFIG = dict(img_resolution=16, img_channels=4, label_dim=4, model_channels=16,
+                  channel_mult=(1, 2), num_blocks=1, video_attn_resolutions=(8,),
+                  frame_attn_resolutions=(16,), channels_per_head=16, max_frames=8)
+TOL_REF = 3e-4     # tests/test_reference_parity.py: every output, std(diff)
+TOL_REMAT = 1e-6   # max |remat - plain| / max |plain| of each gradient leaf
+EPISODES = "run_artifacts/episodes/lunarlander_heuristic_seed0_256px.npz"
+R3_UNET = "saved_models/gym_r3/unet_46M_ema0.050_step40000_bfloat16.ad"
+
+
+def phase_counts(fa, fc) -> dict:
+    return dict(conv_fwd=fc.conv_fwd_launches, conv_bwd=fc.conv_bwd_launches,
+                block=fc.launches, prefill=fa.launches,
+                **{n.removesuffix("_launches"): getattr(fa, n) for n in FLASH_COUNTERS})
+
+
+def zero_phase_counts(fa, fc):
+    fc.conv_fwd_launches = fc.conv_bwd_launches = fc.launches = fa.launches = 0
+    zero_flash_counts(fa)
+
+
+def reference_checks(dev) -> list:
+    """[(check, value, bound)] of the port in fp32 on `dev` against the
+    original's recorded tensors, as tests/test_torch_reference_parity.py
+    holds it on the CPU: the causal conv and video attention fixtures (train,
+    just_2d, prefill, decode) and the Precond imported by import_torch_3d
+    (train y and input gradient, just_2d, prefill, cached decode, the loss
+    and the 8-step sampler). Returns the Precond too."""
+    import numpy as np
+    from autoregressive_diffusion_tpu_torch.models import (Precond, UNetConfig, VideoAttention,
+                                                           init_cache)
+    from autoregressive_diffusion_tpu_torch.models.layers import MPCausalConv3d
+    from autoregressive_diffusion_tpu_torch.sampling import edm_sampler, karras_schedule
+    from autoregressive_diffusion_tpu_torch.train import EDM2LossConfig, edm2_loss, init_coefs
+    from autoregressive_diffusion_tpu_torch.utils.import_2d import (_conv3d_w, _conv_w,
+                                                                    _import_gating,
+                                                                    _qkv_mcs_to_smc,
+                                                                    import_torch_3d)
+
+    def load(name):
+        return dict(np.load(FIXTURES / name))
+
+    def tl(x):
+        return torch.from_numpy(np.ascontiguousarray(np.transpose(x, (0, 1, 3, 4, 2)))).to(dev)
+
+    def t_(x):
+        return torch.from_numpy(np.asarray(x)).to(dev)
+
+    def sdiff(a, b):
+        return float(torch.std(a.detach().double().cpu() - b.detach().double().cpu()))
+
+    rows = []
+    z = load("conv.npz")
+    conv = MPCausalConv3d(6, 8)
+    st = conv.state_dict()
+    st["last_frame_conv.w"] = torch.from_numpy(_conv_w(z["sd/last_frame_conv.weight.weight"]))
+    st["w"] = torch.from_numpy(_conv3d_w(z["sd/weight.weight"]).copy())
+    _import_gating(st, "gating", {f"g.{k}": z[f"sd/gating.{k}"] for k in
+                                  ("offset", "mult", "max_gating", "min_gating")}, "g")
+    conv.load_state_dict(st)
+    conv.to(dev)
+    with torch.no_grad():
+        x, cn = tl(z["x_train"]), t_(z["c_noise_train"])
+        rows.append(("conv train", sdiff(conv(x, cn, mode="train")[0], tl(z["y_train"])), TOL_REF))
+        rows.append(("conv just_2d", sdiff(conv(x, cn, mode="train", just_2d=True)[0],
+                                           tl(z["y_2d"])), TOL_REF))
+        xe = tl(z["x_eval"])
+        y, cache = conv(xe, t_(z["cn_eval"]), update_cache=True)
+        rows.append(("conv prefill", sdiff(y, tl(z["y_prefill"])), TOL_REF))
+        y, _ = conv(tl(z["x_decode"]), t_(z["cn_decode"]), frames=xe.shape[1], cache=cache,
+                    update_cache=True)
+        rows.append(("conv decode", sdiff(y, tl(z["y_decode"])), TOL_REF))
+
+    z = load("attention.npz")
+    heads = int(z["num_heads"])
+    attn = VideoAttention(32, heads, max_frames=8)
+    st = attn.state_dict()
+    st["attn_qkv.w"] = torch.from_numpy(
+        _conv_w(_qkv_mcs_to_smc(z["sd/attn_qkv.weight.weight"], heads)).copy())
+    st["attn_proj.w"] = torch.from_numpy(_conv_w(z["sd/attn_proj.weight.weight"]).copy())
+    attn.load_state_dict(st)
+    attn.to(dev)
+    with torch.no_grad():
+        x = tl(z["x_train"])
+        rows.append(("attention train", sdiff(attn(x, mode="train")[0], tl(z["y_train"])),
+                     TOL_REF))
+        rows.append(("attention just_2d", sdiff(attn(x, mode="train", just_2d=True)[0],
+                                                tl(z["y_2d"])), TOL_REF))
+        xe = tl(z["x_eval"])
+        y, cache = attn(xe, update_cache=True)
+        rows.append(("attention prefill", sdiff(y, tl(z["y_prefill"])), TOL_REF))
+        y, _ = attn(tl(z["x_decode"]), cache, True, xe.shape[1])
+        rows.append(("attention decode", sdiff(y, tl(z["y_decode"])), TOL_REF))
+
+    z = load("precond.npz")
+    model = Precond(UNetConfig(**REF_CONFIG), sigma_data=1.0)
+    sd = {k[3:]: v for k, v in z.items() if k.startswith("sd/")}
+    model.load_state_dict(import_torch_3d(model.state_dict(), sd, model.cfg))
+    model = model.to(dev).eval()
+    x = tl(z["x_train"]).requires_grad_(True)
+    probe = tl(np.sin(np.arange(z["y_train"].size, dtype=np.float32) * 0.17)
+               .reshape(z["y_train"].shape))
+    y, _ = model(x, t_(z["sigma_train"]), t_(z["cond_train"]).long(), mode="train")
+    (y * probe).sum().backward()
+    rows.append(("precond train y", sdiff(y, tl(z["y_train"])), TOL_REF))
+    rows.append(("precond train input gradient", sdiff(x.grad, tl(z["probe_grad_x"])), 1e-3))
+    with torch.no_grad():
+        t = z["y_2d"].shape[1]
+        cond = t_(z["cond_train"]).long()[:, :t]
+        xs = tl(z["x_train"])[:, :t]
+        y, _ = model(xs, t_(z["sigma_train"])[:, :t], cond, just_2d=True)
+        rows.append(("precond just_2d", sdiff(y, tl(z["y_2d"])), TOL_REF))
+        b = xs.shape[0]
+        y, cache = model(xs, torch.full((b, t), 0.05, device=dev), cond,
+                         cache=init_cache(model, b, device=dev), update_cache=True)
+        rows.append(("precond prefill", sdiff(y, tl(z["y_prefill"])), TOL_REF))
+        y, _ = model(tl(z["x_decode"]), torch.full((b, 1), 1.7, device=dev), cond[:, :1],
+                     cache=cache, update_cache=True)
+        rows.append(("precond decode", sdiff(y, tl(z["y_decode"])), TOL_REF))
+
+        zl = load("loss.npz")
+        sigma = t_(zl["sigma"])
+        loss, aux = edm2_loss(model, tl(zl["images"]), 0,
+                              EDM2LossConfig(P_mean=1.2, P_std=1.0, sigma_data=1.0,
+                                             context_noise_reduction=0.5),
+                              t_(zl["cond"]).long(), init_coefs(dev), sigma=sigma,
+                              noise=sigma[:, :, None, None, None] * tl(zl["noise"]))
+        for name, got, want in (("loss", loss, zl["loss"]),
+                                ("unweighted loss", aux["unweighted"], zl["unweighted"])):
+            rows.append((f"{name} (relative)", abs(float(got) - float(want))
+                         / max(1.0, abs(float(want))), 2e-3))
+
+        zs = load("sampler.npz")
+        ctx, cond = tl(zs["ctx"]), t_(zs["cond"]).long()
+        b, t = ctx.shape[:2]
+        t0 = float(karras_schedule(8, 0.02, 20.0, 7.0)[0])
+        kw = dict(num_steps=8, sigma_min=0.02, sigma_max=20.0, rho=7.0)
+
+        def prefill():
+            return model(ctx, torch.full((b, t), 0.05, device=dev), cond,
+                         cache=init_cache(model, b, device=dev), update_cache=True)[1]
+
+        shape = tuple(tl(zs["x_init"]).shape)
+        x, _, _, _ = edm_sampler(model, prefill(), shape, cond[:, :1],
+                                 x_init=tl(zs["x_init"]) * t0, **kw)
+        rows.append(("sampler 8 steps", sdiff(x, tl(zs["x_final"])), 1e-3))
+        _, mses, mses_pred, _ = edm_sampler(model, prefill(), shape, cond[:, :1],
+                                            x_init=tl(zs["x_init_target"]) * t0,
+                                            target=tl(zs["target"]), **kw)
+        for name, got, want in (("sampler mse_target", mses, zs["mse_target"]),
+                                ("sampler mse_pred_target", mses_pred, zs["mse_pred_target"])):
+            # np.testing.assert_allclose(rtol=5e-3, atol=1e-4) as a ratio to 1
+            err = np.abs(got.cpu().numpy() - want) / (1e-4 + 5e-3 * np.abs(want))
+            rows.append((f"{name} (allclose ratio)", float(err.max()), 1.0))
+    return rows, model
+
+
+def body_check(model, dev) -> list:
+    """The recorded Precond has out_gain = 0 and every emb_gain = 0 (the
+    original's init), so its outputs do not see the UNet body: the same
+    imported weights with those gains set to 1, on the card (kernels)
+    against the CPU (plain versions): train y and input gradient, prefill
+    and one cached decode step."""
+    import numpy as np
+    from autoregressive_diffusion_tpu_torch.models import Precond, init_cache
+
+    state = {k: (torch.ones_like(v) if k.rsplit(".", 1)[-1] in ("out_gain", "emb_gain") else v)
+             for k, v in model.state_dict().items()}
+    rng = np.random.default_rng(13)
+    x = rng.normal(size=(2, 6, 16, 16, 4)).astype(np.float32)
+    sig = np.exp(rng.normal(size=(2, 6))).astype(np.float32)
+    cond = rng.integers(0, 4, size=(2, 6))
+    xd = rng.normal(size=(2, 1, 16, 16, 4)).astype(np.float32)
+    out = {}
+    for d in (dev, "cpu"):
+        m = Precond(model.cfg, sigma_data=1.0)
+        m.load_state_dict(state)
+        m = m.to(d).eval()
+        xt = torch.from_numpy(x).to(d).requires_grad_(True)
+        y, _ = m(xt, torch.from_numpy(sig).to(d), torch.from_numpy(cond).to(d), mode="train")
+        (y * y).sum().backward()
+        with torch.no_grad():
+            c = torch.from_numpy(cond[:, :3]).to(d)
+            yp, cache = m(xt.detach()[:, :3], torch.full((2, 3), 0.05, device=d), c,
+                          cache=init_cache(m, 2, device=d), update_cache=True)
+            yd, _ = m(torch.from_numpy(xd).to(d), torch.full((2, 1), 1.7, device=d), c[:, :1],
+                      cache=cache, update_cache=True)
+        out[d] = [t.detach().double().cpu() for t in (y, xt.grad, yp, yd)]
+    rows = []
+    for name, a, b in zip(("train y", "train input gradient", "prefill", "decode"),
+                          out[dev], out["cpu"]):
+        rows.append((f"gains 1, card vs CPU: {name} std(diff)/std(CPU)",
+                     float((a - b).std() / b.std()), TOL_REF))
+    return rows
+
+
+def dropout_remat_check(fa, fc, build_trainer, synthetic_batch, run_steps, edm2_loss,
+                        loss_cfg, steps=3, overrides=None):
+    """The gym DART step (bf16 body, batch 8, T=8) with dropout 0.1, without
+    and with per-Block remat, from the same weights, batch and seed (so the
+    same dropout masks): one loss + backward each, its launches counted and
+    its gradients compared leaf by leaf; then `steps` train steps each
+    (step 0 the warm-up) for the step time and the peak memory."""
+    overrides = dict(overrides or {})
+    b, t = 8, 8
+    res = {}
+    for remat in (False, True):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        state, step = build_trainer(DEV, torch.bfloat16, seed=0, batch=b, dropout=0.1,
+                                    remat=remat, **overrides)
+        model = state.model
+        images, cond = synthetic_batch(model.cfg, b, t, 1, torch.device(DEV))
+        zero_phase_counts(fa, fc)
+        loss, _ = edm2_loss(model, images, 77, loss_cfg, cond, state.coefs)
+        loss.backward()
+        torch.cuda.synchronize()
+        counts = phase_counts(fa, fc)
+        grads = {n: p.grad.detach().float().clone() for n, p in model.named_parameters()
+                 if p.grad is not None}
+        model.zero_grad(set_to_none=True)
+        torch.cuda.reset_peak_memory_stats()
+        zero_phase_counts(fa, fc)
+        rows = run_steps(state, step, images, cond, steps, seed=0, just_2d_every=0)
+        step_counts = {k: v / steps for k, v in phase_counts(fa, fc).items()}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        step_ms = [r["seconds"] * 1e3 for r in rows]
+        res[remat] = dict(loss=float(loss.detach()), counts=counts, step_counts=step_counts,
+                          grads=grads, peak_mb=peak, step_ms=step_ms,
+                          losses=[r["loss"] for r in rows])
+        n_blocks = sum(sp["kind"] == "block" for _, _, sp in model.cfg.block_layout())
+        n_convs = 2 * n_blocks + 2
+        n_video = sum(1 for _, _, sp in model.cfg.block_layout()
+                      if sp.get("attention") == "video" and model.cfg.num_heads(sp))
+        n_frame = sum(1 for _, _, sp in model.cfg.block_layout()
+                      if sp.get("attention") == "frame" and model.cfg.num_heads(sp))
+        del state, step, model, loss
+    g0, g1 = res[False]["grads"], res[True]["grads"]
+    worst, worst_name, bitwise = 0.0, "", set(g0) == set(g1)
+    for n, ref in g0.items():
+        d = (g1[n] - ref).abs().max()
+        err = float(d / ref.abs().max().clamp_min(1e-30))
+        bitwise = bitwise and bool(torch.equal(g1[n], ref))
+        if err > worst:
+            worst, worst_name = err, n
+    # remat runs every Block's forward again inside the backward: its two
+    # convs and its attention layer (every attention layer sits in a Block)
+    want = {False: dict(conv_fwd=n_convs, conv_bwd=n_convs, dart_fwd=n_video,
+                        dart_bwd=n_video, full_fwd=n_frame, full_bwd=n_frame),
+            True: dict(conv_fwd=n_convs + 2 * n_blocks, conv_bwd=n_convs,
+                       dart_fwd=2 * n_video, dart_bwd=n_video, full_fwd=2 * n_frame,
+                       full_bwd=n_frame)}
+    return dict(res=res, worst=worst, worst_name=worst_name, bitwise=bitwise, want=want,
+                n_leaves=len(g0))
+
+
+def ref_drift_phase(fa, fc, build_trainer, synthetic_batch, run_steps, edm2_loss, loss_cfg,
+                    drift_frames=8, dropout_steps=3, overrides=None, unet=R3_UNET):
+    """Phase 13: (a) reference_checks and body_check on the card, with the
+    kernels' launches counted; (b) dropout_remat_check at full width; (c)
+    rollout_drift on the r3 weights and the trained VAE over the committed
+    episode 0 for drift_frames frames, every launch counter zeroed before
+    and read after (17 decode Blocks a denoiser call, 6 prefill launches a
+    prefill), the series finite and in drift.npz. Returns (failures,
+    summary, launches)."""
+    import contextlib
+    import io
+    import numpy as np
+    from autoregressive_diffusion_tpu_torch import rollout_drift
+    from autoregressive_diffusion_tpu_torch.models import UNetConfig
+    from autoregressive_diffusion_tpu_torch.utils import load_model
+
+    failures, summary = [], {}
+    t_phase = time.perf_counter()
+
+    # (a) the original's recorded tensors through the kernels, fp32
+    zero_phase_counts(fa, fc)
+    t0 = time.perf_counter()
+    rows, model = reference_checks(torch.device(DEV))
+    rows += body_check(model, torch.device(DEV))
+    torch.cuda.synchronize()
+    c = phase_counts(fa, fc)
+    launches = dict(c)
+    for name, value, bound in rows:
+        ok = value <= bound
+        log(f"# ref {name}: {value:.3e} (bound {bound:.0e}) ok={ok}")
+        if not ok:
+            failures.append(f"reference fixture {name}: {value:.3e} > {bound:.0e}")
+    used = {k: c[k] for k in ("conv_fwd", "conv_bwd", "block", "prefill", "dart_fwd",
+                              "dart_bwd", "full_fwd")}
+    log(f"# ref launches: {c} ({time.perf_counter() - t0:.1f} s)")
+    if not all(used.values()):
+        failures.append(f"reference fixtures: a kernel never launched {used}")
+    summary["reference"] = dict(rows=rows, launches=c)
+    del model
+    torch.cuda.empty_cache()
+
+    # (b) dropout and remat at full width
+    t0 = time.perf_counter()
+    r = dropout_remat_check(fa, fc, build_trainer, synthetic_batch, run_steps, edm2_loss,
+                            loss_cfg, dropout_steps, overrides)
+    for remat in (False, True):
+        x = r["res"][remat]
+        for k2, v in x["counts"].items():
+            launches[k2] += v + round(x["step_counts"][k2] * dropout_steps)
+        got = {k2: x["counts"][k2] for k2 in r["want"][remat]}
+        steady = x["step_ms"][1:] or x["step_ms"]
+        log(f"# dropout 0.1 remat={remat}: loss {x['loss']:.6f}, step ms {x['step_ms']} "
+            f"(mean of steps 1+ {sum(steady) / len(steady):.1f}), peak_mem_mb="
+            f"{x['peak_mb']:.1f}, launches of a loss + backward {got} (want "
+            f"{r['want'][remat]}), a train step {x['step_counts']}")
+        if got != r["want"][remat]:
+            failures.append(f"dropout remat={remat}: launches {got} != {r['want'][remat]}")
+        if not all(np.isfinite(x["losses"])):
+            failures.append(f"dropout remat={remat}: loss not finite")
+    log(f"# remat vs plain gradients (dropout 0.1, same masks): worst max|diff|/max|plain| "
+        f"{r['worst']:.3e} ({r['worst_name']}, {r['n_leaves']} leaves; tol {TOL_REMAT:.0e}), "
+        f"bitwise equal={r['bitwise']}; loss {r['res'][False]['loss']!r} vs "
+        f"{r['res'][True]['loss']!r} ({time.perf_counter() - t0:.1f} s)")
+    if r["worst"] > TOL_REMAT:
+        failures.append(f"remat gradients differ: {r['worst']:.3e}")
+    summary["dropout_remat"] = {
+        "worst_rel": r["worst"], "worst_leaf": r["worst_name"], "bitwise": r["bitwise"],
+        **{f"remat={k}": {k2: v for k2, v in x.items() if k2 != "grads"}
+           for k, x in r["res"].items()}}
+    del r
+    torch.cuda.empty_cache()
+
+    # (c) the drift tool on the trained weights, committed episode 0
+    t0 = time.perf_counter()
+    out = ROOT / "build" / f"drift_phase_{int(time.time() * 1e3)}"
+    zero_phase_counts(fa, fc)
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            res = rollout_drift.main(["--unet", str(ROOT / unet), "--vae", str(ROOT / VAE_BUNDLE),
+                                      "--episodes-file", str(ROOT / EPISODES), "--episodes", "1",
+                                      "--frames", str(drift_frames), "--out", str(out),
+                                      "--device", DEV])
+        torch.cuda.synchronize()
+        c = phase_counts(fa, fc)
+        for k2, v in c.items():
+            launches[k2] += v
+        text = buf.getvalue()
+        for line in text.splitlines():
+            log(f"# drift: {line.lstrip('# ')}")
+        args = rollout_drift.parse_args(["--unet", unet, "--vae", VAE_BUNDLE])
+        calls = drift_frames * (2 * args.num_steps - 1)
+        cfg = UNetConfig(**{k2: tuple(v) if isinstance(v, list) else v
+                            for k2, v in load_model(ROOT / unet)[0].items()})
+        n_blocks = len(decode_block_shapes(cfg))  # r3: 17
+        n_video = sum(1 for _, _, sp in cfg.block_layout()  # r3: 6
+                      if sp.get("attention") == "video" and cfg.num_heads(sp))
+        want_block, want_prefill = n_blocks * calls, n_video
+        log(f"# drift launches: decode block {c['block']} (want {want_block} = {n_blocks} x "
+            f"{calls} "
+            f"denoiser calls), prefill {c['prefill']} (want {want_prefill}), full fwd "
+            f"{c['full_fwd']}; {time.perf_counter() - t0:.1f} s, "
+            f"{res['episode_seconds'][0] / calls * 1e3:.1f} ms a denoiser call with the "
+            f"encode and decode")
+        with np.load(out / "drift.npz") as z:
+            keys = sorted(z.files)
+            finite = all(bool(np.isfinite(z[k]).all()) for k in keys)
+            shapes = {z[k].shape for k in keys}
+        if keys != sorted(["latent_mse", "persistence_mse", "pixel_mse", "gen_std", "gt_std"]):
+            failures.append(f"drift.npz keys {keys}")
+        if not finite or shapes != {(drift_frames,)}:
+            failures.append(f"drift series not finite or of shape {shapes}")
+        if (c["block"], c["prefill"]) != (want_block, want_prefill):
+            failures.append(f"drift launches block {c['block']} prefill {c['prefill']} != "
+                            f"{want_block}, {want_prefill}")
+        summary["drift"] = dict(series={k: v.tolist() for k, v in res["series"].items()},
+                                summary=res["summary"], seconds=res["episode_seconds"],
+                                launches=c, denoiser_calls=calls)
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    summary["seconds"] = time.perf_counter() - t_phase
+    log(f"# ref-drift phase: {summary['seconds']:.1f} s, launches {launches}")
+    return failures, summary, launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None, help="also write the detailed results here")
@@ -2893,6 +3294,19 @@ def main(argv=None):
     train_flash = tuple(t + vae_launches[k] for t, k in
                         zip(train_flash, ("dart_fwd", "dart_bwd", "full_fwd", "full_bwd")))
 
+    # phase 13: the original's recorded tensors on the card, dropout and
+    # remat at full width, the drift tool on the trained weights
+    torch.cuda.empty_cache()
+    ref_failures, ref_summary, ref_launches = ref_drift_phase(
+        fa, fc, build_trainer, synthetic_batch, run_steps, edm2_loss, GYM_LOSS)
+    failures += ref_failures
+    launches_a += ref_launches["prefill"]
+    launches_b += ref_launches["block"]
+    launches_cf += ref_launches["conv_fwd"]
+    launches_cb += ref_launches["conv_bwd"]
+    train_flash = tuple(t + ref_launches[k] for t, k in
+                        zip(train_flash, ("dart_fwd", "dart_bwd", "full_fwd", "full_bwd")))
+
     # the kernels line: main-path shapes in the main path's dtype (bf16)
     main_attn = next(r for r in attn_rows
                      if r["dtype"] == "bfloat16" and r["case"] == "ring off=0 t=8 F=64")
@@ -2975,8 +3389,9 @@ def main(argv=None):
         "every row also counts phase 10 (the gym training path, its sampler callback, the "
         "resume and replay steps and the served export), phase 11 (the CS path: its "
         "training steps, the card-against-CPU check, the probe, the rollout and the timed "
-        "denoiser calls) and phase 12 (the rollout that serves the trained VAE; VAE training "
-        "launches no port kernel)")
+        "denoiser calls), phase 12 (the rollout that serves the trained VAE; VAE training "
+        "launches no port kernel) and phase 13 (the reference fixtures, the dropout and remat "
+        "steps, the drift rollout)")
     log("# decode_block ms/plain_ms/bound_ms are sums over the 17 Blocks of one denoiser "
         "call; prefill_attention's are at the first prefill (t_new=8, f_total=64); the "
         "ms and library_ms of both are device times (library: F.scaled_dot_product_attention "
@@ -3005,7 +3420,7 @@ def main(argv=None):
                                     **{k: v for k, v in r["gym"].items()})
                                for r in sp_ranks],
                       gym=gym_summary, cs=cs_summary, cs_kernels=cs_kernels,
-                      vae_train=vae_summary)
+                      vae_train=vae_summary, ref_drift=ref_summary)
         Path(args.out).write_text(json.dumps(detail, indent=1))
 
     log(f"# total {time.perf_counter() - t_start:.1f} s")

@@ -782,3 +782,85 @@ def test_trained_vae_on_the_card_matches_the_cpu(cuda):
     assert got.shape == (1, 8, 128, 128, 3) and bool(torch.isfinite(got).all())
     assert float((got.double() - want.double()).std()) <= 3e-4
     assert int((got.to(torch.uint8).int() - want.to(torch.uint8).int()).abs().max()) <= 1
+
+
+# the original's recorded tensors, dropout and remat on the card
+
+@pytest.mark.cuda
+def test_reference_precond_fixture_on_the_card(cuda):
+    """The original's Precond (tests/reference_parity/fixtures/precond.npz)
+    loaded by the port's import_torch_3d, fp32 on the card through the
+    kernels, at the CPU test's bounds: train y 3e-4 and input gradient
+    1e-3, prefill and cached decode 3e-4; every kernel kind launches."""
+    from autoregressive_diffusion_tpu_torch.models import Precond, UNetConfig, init_cache
+    from autoregressive_diffusion_tpu_torch.utils.import_2d import import_torch_3d
+
+    z = dict(np.load(ROOT / "tests" / "reference_parity" / "fixtures" / "precond.npz"))
+
+    def tl(x):
+        return torch.from_numpy(np.ascontiguousarray(np.transpose(x, (0, 1, 3, 4, 2)))).to(cuda)
+
+    def sdiff(a, b):
+        return float((a.detach().double() - b.double()).std())
+
+    cfg = UNetConfig(img_resolution=16, img_channels=4, label_dim=4, model_channels=16,
+                     channel_mult=(1, 2), num_blocks=1, video_attn_resolutions=(8,),
+                     frame_attn_resolutions=(16,), channels_per_head=16, max_frames=8)
+    model = Precond(cfg, sigma_data=1.0)
+    sd = {k[3:]: v for k, v in z.items() if k.startswith("sd/")}
+    model.load_state_dict(import_torch_3d(model.state_dict(), sd, cfg))
+    model = model.to(cuda).eval()
+    before = (fc.conv_fwd_launches, fc.conv_bwd_launches, fa.dart_fwd_launches, fa.launches,
+              fc.launches)
+    x = tl(z["x_train"]).requires_grad_(True)
+    cond = torch.from_numpy(z["cond_train"]).long().to(cuda)
+    y, _ = model(x, torch.from_numpy(z["sigma_train"]).to(cuda), cond, mode="train")
+    probe = tl(np.sin(np.arange(z["y_train"].size, dtype=np.float32) * 0.17)
+               .reshape(z["y_train"].shape))
+    (y * probe).sum().backward()
+    assert sdiff(y, tl(z["y_train"])) <= 3e-4
+    assert sdiff(x.grad, tl(z["probe_grad_x"])) <= 1e-3
+    t = z["y_prefill"].shape[1]
+    with torch.no_grad():
+        y, cache = model(tl(z["x_train"])[:, :t], torch.full((2, t), 0.05, device=cuda),
+                         cond[:, :t], cache=init_cache(model, 2, device=cuda),
+                         update_cache=True)
+        assert sdiff(y, tl(z["y_prefill"])) <= 3e-4
+        y, _ = model(tl(z["x_decode"]), torch.full((2, 1), 1.7, device=cuda), cond[:, :1],
+                     cache=cache, update_cache=True)
+        assert sdiff(y, tl(z["y_decode"])) <= 3e-4
+    torch.cuda.synchronize()
+    after = (fc.conv_fwd_launches, fc.conv_bwd_launches, fa.dart_fwd_launches, fa.launches,
+             fc.launches)
+    assert all(a > b for a, b in zip(after, before))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_remat_gradients_equal_plain_on_the_card(cuda, dtype):
+    """Dropout 0.1 from one seed, a small model, without and with
+    per-Block remat on the card: gradients within 1e-6 of the largest
+    (the kernels have no atomics, so equal is expected), and the remat run
+    launches every Block's convs and attention forward twice."""
+    from autoregressive_diffusion_tpu_torch.train import build_trainer, edm2_loss, synthetic_batch
+    from autoregressive_diffusion_tpu_torch.train.cli import GYM_LOSS
+
+    small = dict(img_resolution=16, img_channels=4, model_channels=16, channel_mult=(1, 2),
+                 num_blocks=1, max_frames=8, channels_per_head=16, dropout=0.1)
+    grads, counts = {}, {}
+    for remat in (False, True):
+        state, _ = build_trainer(cuda, dtype, seed=2, batch=2, remat=remat, **small)
+        images, cond = synthetic_batch(state.model.cfg, 2, 3, 1, cuda)
+        before = (fc.conv_fwd_launches, fc.conv_bwd_launches, fa.dart_fwd_launches)
+        loss, _ = edm2_loss(state.model, images, 5, GYM_LOSS, cond, state.coefs)
+        loss.backward()
+        torch.cuda.synchronize()
+        counts[remat] = tuple(a - b for a, b in zip(
+            (fc.conv_fwd_launches, fc.conv_bwd_launches, fa.dart_fwd_launches), before))
+        grads[remat] = {n: p.grad.float() for n, p in state.model.named_parameters()
+                        if p.grad is not None}
+    n_blocks = sum(sp["kind"] == "block" for _, _, sp in state.model.cfg.block_layout())
+    assert counts[True] == (counts[False][0] + 2 * n_blocks, counts[False][1],
+                            2 * counts[False][2])
+    for n, g in grads[False].items():
+        assert float((grads[True][n] - g).abs().max()) <= 1e-6 * float(g.abs().max()), n

@@ -61,6 +61,12 @@ def test_import_leaves_jax_out():
             "import autoregressive_diffusion_tpu_torch.cs_vae_train\n"
             "import autoregressive_diffusion_tpu_torch.cs_vae_adversarial\n"
             "import autoregressive_diffusion_tpu_torch.calibrate_lpips\n"
+            "import autoregressive_diffusion_tpu_torch.rollout_drift\n"
+            "import autoregressive_diffusion_tpu_torch.drift_sweep\n"
+            "import autoregressive_diffusion_tpu_torch.utils.import_2d\n"
+            "import autoregressive_diffusion_tpu_torch.utils.misc\n"
+            "import autoregressive_diffusion_tpu_torch.utils.stats\n"
+            "import autoregressive_diffusion_tpu_torch.utils.plotting\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
             "       or m == 'flax' or m.startswith('flax.') or m == 'optax'\n"
             "       or m == 'orbax' or m.startswith('orbax.')\n"
@@ -142,7 +148,9 @@ def test_every_port_module_is_on_the_isolation_list():
                  "data/__init__.py", "data/native.py", "data/gym_data.py", "data/replay.py",
                  "gym_train.py", "export_ema.py", "data/mds.py", "data/cs_data.py",
                  "build_cs_dataset.py", "compute_latent_stats.py", "cs_train.py",
-                 "cs_rollout.py", "context_probe.py", "cs_eval_suite.py"):
+                 "cs_rollout.py", "context_probe.py", "cs_eval_suite.py",
+                 "rollout_drift.py", "drift_sweep.py", "utils/import_2d.py", "utils/misc.py",
+                 "utils/stats.py", "utils/plotting.py"):
         assert want in names, want
 
 
@@ -171,26 +179,40 @@ def test_train_entry_point_defaults_to_the_card(monkeypatch, capsys):
 
 
 def test_train_mode_refuses_dropout():
+    """Dropout draws its masks from an explicit generator: train mode
+    refuses dropout without one, runs with one, and eval ignores dropout."""
     from autoregressive_diffusion_tpu_torch.generate import build_model
 
     model = build_model("cpu", torch.float32, img_resolution=16, img_channels=4,
                         model_channels=16, channel_mult=(1,), num_blocks=1, dropout=0.1)
     x = torch.zeros((1, 2, 16, 16, 4))
-    with pytest.raises(NotImplementedError, match="dropout"):
-        model(x, torch.ones((1, 2)), torch.zeros((1, 2), dtype=torch.long), mode="train")
+    args = (x, torch.ones((1, 2)), torch.zeros((1, 2), dtype=torch.long))
+    with pytest.raises(ValueError, match="dropout"):
+        model(*args, mode="train")
+    y, _ = model(*args, mode="train", dropout_generator=torch.Generator().manual_seed(0))
+    assert y.shape == x.shape and bool(torch.isfinite(y).all())
+    with torch.no_grad():
+        assert model(*args)[0].shape == x.shape
 
 
 @pytest.mark.parametrize("knob", ["remat", "decode_quant"])
 def test_train_mode_refuses_remat_and_int8(knob):
-    """remat (per-Block rematerialization) is not ported and int8 weights
-    are eval-only: train mode raises on either, eval runs."""
+    """int8 weights are eval-only: train mode raises on decode_quant. remat
+    (per-Block rematerialization) is ported: train mode runs it and gives
+    the output of the same weights without it. Eval runs either."""
     from autoregressive_diffusion_tpu_torch.generate import build_model
 
-    model = build_model("cpu", torch.float32, img_resolution=16, img_channels=4,
-                        model_channels=16, channel_mult=(1,), num_blocks=1, **{knob: True})
+    kw = dict(img_resolution=16, img_channels=4, model_channels=16, channel_mult=(1,),
+              num_blocks=1)
+    model = build_model("cpu", torch.float32, **kw, **{knob: True})
     x = torch.zeros((1, 2, 16, 16, 4))
-    with pytest.raises((NotImplementedError, ValueError), match=knob):
-        model(x, torch.ones((1, 2)), torch.zeros((1, 2), dtype=torch.long), mode="train")
+    if knob == "remat":
+        plain = build_model("cpu", torch.float32, **kw)
+        args = (x, torch.ones((1, 2)), torch.zeros((1, 2), dtype=torch.long))
+        assert torch.equal(model(*args, mode="train")[0], plain(*args, mode="train")[0])
+    else:
+        with pytest.raises(ValueError, match=knob):
+            model(x, torch.ones((1, 2)), torch.zeros((1, 2), dtype=torch.long), mode="train")
     with torch.no_grad():
         y, _ = model(x, torch.ones((1, 2)), torch.zeros((1, 2), dtype=torch.long))
     assert y.shape == x.shape

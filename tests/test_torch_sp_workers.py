@@ -1,4 +1,5 @@
-"""Rank functions of tests/test_torch_sp.py (no tests of its own).
+"""Rank functions of tests/test_torch_sp.py, test_torch_cs_train.py and
+test_torch_utils.py (no tests of its own).
 
 They run in processes started by parallel.run_local_ranks (spawn), which
 import this module by name: it imports torch and the port only, never JAX.
@@ -87,3 +88,21 @@ def cs_train_run(argv):
     tr = cs_train.main(argv)
     return (list(tr.losses), {n: float(p.detach().double().sum())
                               for n, p in tr.state.model.named_parameters()})
+
+
+def stats_rank(values):
+    """utils/stats over a gloo group of all ranks: this rank reports its
+    values[rank] under "x" and 10 x its rank under "r0" through report0; a
+    Collector's update pools both. Returns (num, mean, std) of each name."""
+    import torch.distributed as dist
+
+    from autoregressive_diffusion_tpu_torch.utils import stats
+    dist.init_process_group("gloo")
+    rank = dist.get_rank()
+    c = stats.Collector(regex="(x|r0)")
+    stats.report("x", torch.tensor(values[rank]))
+    stats.report0("r0", 10.0 * (rank + 1))
+    c.update()
+    out = {n: (c.num(n), c.mean(n), c.std(n)) for n in ("x", "r0")}
+    dist.destroy_process_group()
+    return out
