@@ -5,7 +5,8 @@
         [--lat-mean M --lat-std S] [--ckpt-dir saved_models_cs] [--resume]
         [--model-channels 128] [--device cuda] [--dtype bf16]
     torchrun --nproc-per-node N -m autoregressive_diffusion_tpu_torch.cs_train
-        --sp SP [--backend nccl|gloo] ...   (data parallelism over N / SP)
+        [--sp SP] [--tp TP] [--fsdp] [--backend nccl|gloo] ...
+        (data parallelism over N / (SP * TP))
 
 Counterpart of scripts/cs_train.py, knob for knob: the CS UNet
 (img_resolution 32, img_channels 8, label_dim 4, model_channels 128,
@@ -31,13 +32,18 @@ torch.Generator seeded per step, so they follow the JAX script's law, not
 its bits. --use-actions feeds the clips' actions to the label embedding
 (the reference keeps label_dim 4 and passes none).
 
-Parallelism: --sp splits each clip's frames over SP ranks and the world's
-other factor is data parallelism, through parallel/ (as train/cli.py does);
-every rank reads the same global batch and takes its slice, the metrics
-are global, and rank 0 alone writes checkpoints. --mds and --shards are
-read in order on every rank (no worker threads), so the ranks draw the
-same windows from the same seed. --tp and --fsdp are not
-ported (ROADMAP.md, Queue 1 item 4) and raise.
+Parallelism, through parallel/ (the JAX script's mesh): --sp splits each
+clip's frames over SP ranks, --tp splits every large weight's output
+channels over TP ranks (tensor parallelism), the world's other factor is
+data parallelism, and --fsdp splits every large weight, its AdamW moments
+and its EMA copies over the data ranks too (parallel.param_sharding, the
+JAX rule). Every rank reads the same global batch and takes its slice, the
+metrics are global, and a checkpoint is gathered on every rank
+(parallel.gather_to_host) and written by rank 0; --resume restores the
+whole state on every rank and shards it again. --mds and --shards are read
+in order on every rank (no worker threads), so the ranks draw the same
+windows from the same seed. Several ranks share one card under --backend
+gloo (NCCL takes one rank a card); --device cpu needs gloo.
 """
 from __future__ import annotations
 
@@ -55,7 +61,8 @@ import torch
 from .data import LocalLatentShards, batched_latents, streaming_dataset
 from .gym_train import build_unet
 from .models import UNetConfig
-from .parallel import create_mesh, seq_slice
+from .parallel import (create_mesh, gather_to_host, seq_slice, shard_train_state,
+                       unshard_train_state)
 from .train import (ClippedAdamW, EDM2LossConfig, MultiNoiseState, create_train_state,
                     learning_rate_schedule, make_optimizer, make_train_step, step_seed)
 from .train.cli import DTYPES
@@ -85,9 +92,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--shards", default=None, help="local .npz latent shard directory")
     ap.add_argument("--mds", default=None, help="local MDS dataset directory")
     ap.add_argument("--tp", type=int, default=1,
-                    help="tensor parallelism (not ported: ROADMAP.md, Queue 1 item 4)")
-    ap.add_argument("--fsdp", action="store_true", help="fully sharded data parallelism "
-                    "(not ported: ROADMAP.md, Queue 1 item 4)")
+                    help="tensor parallelism: every large weight's output channels split "
+                         "over TP ranks")
+    ap.add_argument("--fsdp", action="store_true",
+                    help="fully sharded data parallelism: every large weight, its AdamW "
+                         "moments and EMA copies split over the data ranks")
     ap.add_argument("--sp", type=int, default=1,
                     help="sequence parallelism: each clip's frames split over SP ranks")
     ap.add_argument("--backend", choices=("nccl", "gloo"), default="nccl",
@@ -104,10 +113,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="condition the UNet on the clips' actions")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--dtype", choices=sorted(DTYPES), default="bf16", help="body dtype")
-    args = ap.parse_args(argv)
-    if args.tp != 1 or args.fsdp:
-        ap.error("--tp and --fsdp are not ported (ROADMAP.md, Queue 1 item 4)")
-    return args
+    return ap.parse_args(argv)
 
 
 @dataclasses.dataclass
@@ -157,18 +163,25 @@ class CSTrainer:
         self.state.coefs.copy_(torch.from_numpy(self.noise_state.fit()))
 
     def checkpoint(self, block: bool = True):
+        """Every rank gathers the state (the sharded leaves' collectives);
+        rank 0 writes it."""
         self.drain()
+        host = self.state if self.mesh is None else gather_to_host(self.state)
         if self.lead:
-            save_train_state(self.args.ckpt_dir, self.state.step, self.state,
+            save_train_state(self.args.ckpt_dir, self.state.step, host,
                              {"losses": list(self.losses)}, keep=3, block=block)
         self.last_ckpt_step = self.state.step
 
     def resume(self) -> int:
-        """Restore the newest checkpoint of --ckpt-dir, if any; the step to
-        start from."""
+        """Restore the newest checkpoint of --ckpt-dir, if any, into the
+        whole state and shard it again; the step to start from."""
         ls = latest_step(self.args.ckpt_dir)
         if ls is not None:
+            sharded = self.state.specs is not None
+            unshard_train_state(self.state)
             self.state, extra = restore_train_state(self.args.ckpt_dir, ls, self.state)
+            if sharded:
+                shard_train_state(self.state, self.mesh, fsdp=self.args.fsdp)
             self.losses = np.asarray(extra.get("losses", [])).tolist()
             self.start = self.state.step
             if self.lead:
@@ -177,13 +190,16 @@ class CSTrainer:
 
 
 def build_trainer(args: argparse.Namespace) -> CSTrainer:
-    """The mesh (under torchrun), the model, the train state and the step."""
+    """The mesh (under torchrun), the model, the train state (sharded by
+    --tp and --fsdp) and the step."""
     mesh, device = None, args.device
     world = int(os.environ.get("WORLD_SIZE", "1"))
-    if world > 1 or args.sp > 1:
-        if world % args.sp:
-            raise ValueError(f"--sp {args.sp} does not divide the world of {world} ranks")
-        mesh = create_mesh(world // args.sp, args.sp, args.backend, args.device)
+    if world > 1 or args.sp > 1 or args.tp > 1:
+        if world % (args.sp * args.tp):
+            raise ValueError(f"--sp {args.sp} x --tp {args.tp} does not divide the world of "
+                             f"{world} ranks")
+        mesh = create_mesh(world // (args.sp * args.tp), args.sp, args.backend, args.device,
+                           tp=args.tp)
         device = mesh.device
     dev = resolve_device(device)
     cfg = cs_config(args.model_channels)
@@ -192,12 +208,15 @@ def build_trainer(args: argparse.Namespace) -> CSTrainer:
     tx = make_optimizer(learning_rate=lambda s: learning_rate_schedule(
         s, args.ref_lr, args.steps / 500, args.steps / 500), grad_clip=0.1, eps=1e-4)
     state = create_train_state(model, tx)
-    dp = 1 if mesh is None else mesh.dp
+    if mesh is not None:
+        shard_train_state(state, mesh, fsdp=args.fsdp)
+    dp = 1 if mesh is None else mesh.batch_ranks
     if args.micro_batch % dp:
         raise ValueError(f"--micro-batch {args.micro_batch} does not split over dp={dp}")
     step_fn = make_train_step(CS_LOSS, tx, args.batch, args.micro_batch // dp, mesh=mesh)
     if mesh is None or mesh.rank == 0:
-        grid = "" if mesh is None else f", mesh dp={mesh.dp} x sp={mesh.sp} ({mesh.backend})"
+        grid = ("" if mesh is None else f", mesh dp={mesh.dp} x sp={mesh.sp} x tp={mesh.tp}"
+                f"{' fsdp' if args.fsdp else ''} ({mesh.backend})")
         print(f"# UNet: {n_params / 1e6:.1f}M params on {dev}{grid}")
     return CSTrainer(args=args, device=dev, mesh=mesh, cfg=cfg, n_params=n_params,
                      state=state, tx=tx, step_fn=step_fn)

@@ -13,6 +13,19 @@ this seq rank's frames extended by a 2-frame halo from the rank before
 weights, eval only) a module holds int8 `w_q` and an fp32 per-output-channel
 `w_scale` as buffers in place of `w`: the baked weight normalize(w) /
 sqrt(fan_in) of train/quantize.py, dequantized at use with no mp_weight.
+
+Under tensor parallelism and FSDP (parallel/mesh.shard_train_state) a
+module's `shard` is (mesh, spec) and `w` holds this rank's shard of the
+weight. An FSDP axis is all-gathered over the data group at every use
+(fsdp_gather; the backward reduce-scatters the gradient), and mp_weight
+then runs on the gathered weight. A weight whose output channels are split
+over the model group computes this rank's output channels, with every
+replicated input (x, the gain, the conv's cvec and gates, whose gradients
+sum over the output channels) passed through copy_to_model, and gathers
+the channels of all model ranks after (gather_model). mp_weight's
+per-output-channel norm is local to the rank's channels; its fan-in is the
+whole input. A sharded module trains only: the eval and decode paths
+serve unsharded weights (parallel.gather_to_host).
 """
 from __future__ import annotations
 
@@ -25,7 +38,8 @@ from torch import nn
 from ..ops.flash_attention import sp_context
 from ..ops.fused_conv import fused_gated_conv
 from ..ops.numerics import mp_weight
-from ..parallel.collectives import HALO, exchange_halo
+from ..parallel.collectives import (HALO, copy_to_model, exchange_halo, fsdp_gather,
+                                   gather_model)
 
 
 def mp_sum_gated(a: torch.Tensor, b: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
@@ -55,6 +69,25 @@ def _weight_slot(module: nn.Module, shape, quant: bool):
         module.w = nn.Parameter(torch.empty(shape))
 
 
+def _gathered(module: nn.Module) -> torch.Tensor:
+    """The module's raw weight with its FSDP axis, if any, gathered."""
+    sh = module.shard
+    if sh is not None and "data" in sh[1]:
+        return fsdp_gather(module.w, sh[1].index("data"), sh[0].data_group)
+    return module.w
+
+
+def _model_group(module: nn.Module):
+    """The model group a module's output channels are split over, or None."""
+    sh = module.shard
+    return sh[0].model_group if sh is not None and sh[1][-1] == "model" else None
+
+
+def _gather(y: torch.Tensor, group) -> torch.Tensor:
+    """All output channels from this rank's (`group` None: y itself)."""
+    return y if group is None else gather_model(y, group)
+
+
 def _dequantized(module: nn.Module, dtype, gain=1.0) -> torch.Tensor:
     """The int8 weight at use: (w_q * w_scale * gain) in `dtype`, with no
     mp_weight (JAX package models/layers.py:62-67)."""
@@ -71,20 +104,29 @@ class MPConv(nn.Module):
         super().__init__()
         self.kernel = tuple(kernel)
         self.quant = quant
+        self.shard = None  # (mesh, spec) under TP/FSDP
         _weight_slot(self, self.kernel + (in_channels, out_channels), quant)
 
     def weight(self, dtype, gain=1.0) -> torch.Tensor:
+        """The normalized weight (of this rank's output channels under TP)."""
         if self.quant:
             return _dequantized(self, dtype, gain)
-        return mp_weight(self.w, gain).to(dtype)
+        return mp_weight(_gathered(self), gain).to(dtype)
 
     def forward(self, x: torch.Tensor, gain=1.0) -> torch.Tensor:
+        group = _model_group(self)
+        if group is not None:
+            x = copy_to_model(x, group)
+            if torch.is_tensor(gain):
+                gain = copy_to_model(gain, group)
         w = self.weight(x.dtype, gain)
         if not self.kernel:
-            return x @ w
-        if self.kernel == (1, 1):
-            return x @ w[0, 0]
-        return conv2d_nhwc(x, w)
+            y = x @ w
+        elif self.kernel == (1, 1):
+            y = x @ w[0, 0]
+        else:
+            y = conv2d_nhwc(x, w)
+        return _gather(y, group)
 
 
 class Gating(nn.Module):
@@ -137,6 +179,7 @@ class MPCausalConv3d(nn.Module):
         kt, kh, kw = kernel
         self.kernel = tuple(kernel)
         self.quant = quant
+        self.shard = None  # (mesh, spec) of `w` under TP/FSDP
         self.last_frame_conv = MPConv(in_channels, out_channels, (kh, kw), quant)
         _weight_slot(self, (kt - 1, kh, kw, in_channels, out_channels), quant)
         self.gating = Gating()
@@ -145,7 +188,7 @@ class MPCausalConv3d(nn.Module):
         """The normalized (or dequantized int8) context weight."""
         if self.quant:
             return _dequantized(self, dtype)
-        return mp_weight(self.w).to(dtype)
+        return mp_weight(_gathered(self)).to(dtype)
 
     def decode_weights(self, dtype, c_noise: torch.Tensor, frames: int):
         """(normalized 2D weight, normalized context weight, gate (B, T)) for
@@ -161,6 +204,9 @@ class MPCausalConv3d(nn.Module):
             return self._train(x, c_noise, frames, just_2d, silu_in, cvec), cache
         if silu_in or cvec is not None:
             raise ValueError("silu_in and cvec are train-mode arguments")
+        if self.shard is not None or self.last_frame_conv.shard is not None:
+            raise ValueError("a sharded conv trains only: serve the weights gathered by "
+                             "parallel.gather_to_host")
         b, t, h, w, cin = x.shape
         y2d = self.last_frame_conv(x)
         if just_2d:
@@ -190,20 +236,34 @@ class MPCausalConv3d(nn.Module):
             raise ValueError("int8 weights are a decode-only path: train with quant off")
         if self.kernel != (3, 3, 3):
             raise NotImplementedError("the fused conv is the 3x3x3 kernel")
+        group = _model_group(self)
+        if (group is None) != (_model_group(self.last_frame_conv) is None):
+            raise ValueError("the 2D and context weights of a conv must share their TP split")
         dt = x.dtype
         w2 = self.last_frame_conv.weight(dt)
         if cvec is not None:
             cvec = cvec.to(dt).contiguous()
         if just_2d:
-            return fused_gated_conv(x.contiguous(), w2, None, cvec, None, silu_in, False)
-        w3 = mp_weight(self.w).to(dt)
+            return _gather(self._fused(group, x, w2, None, cvec, None, silu_in, False), group)
+        w3 = self.context_weight(dt)
         mesh = sp_context()
         if mesh is not None and mesh.sp > 1:
-            return self._train_sp(x, c_noise, frames, silu_in, cvec, w2, w3, mesh)
-        gate = self.gating(c_noise, frames, train=True).float()
-        return fused_gated_conv(x.contiguous(), w2, w3, cvec, gate, silu_in, True)
+            y = self._train_sp(x, c_noise, frames, silu_in, cvec, w2, w3, mesh, group)
+        else:
+            gate = self.gating(c_noise, frames, train=True).float()
+            y = self._fused(group, x, w2, w3, cvec, gate, silu_in, True)
+        return _gather(y, group)
 
-    def _train_sp(self, x, c_noise, frames, silu_in, cvec, w2, w3, mesh):
+    @staticmethod
+    def _fused(group, x, w2, w3, cvec, gate, silu_in, with_ctx):
+        """The fused conv of this rank's output channels (all of them
+        without TP); under TP x, cvec and gate enter through copy_to_model."""
+        if group is not None:
+            x, cvec, gate = (None if a is None else copy_to_model(a, group)
+                             for a in (x, cvec, gate))
+        return fused_gated_conv(x.contiguous(), w2, w3, cvec, gate, silu_in, with_ctx)
+
+    def _train_sp(self, x, c_noise, frames, silu_in, cvec, w2, w3, mesh, group):
         """The DART conv of this seq rank's frames (global positions from
         `frames`, the rank's offset): on rank r > 0 the conv runs on the
         concat extended by rank r - 1's last 2 clean frames, which their
@@ -214,10 +274,10 @@ class MPCausalConv3d(nn.Module):
         x, cvec = exchange_halo(x, cvec, mesh.seq_group)
         if mesh.seq_rank == 0:
             gate = self.gating(c_noise, frames, train=True).float()
-            return fused_gated_conv(x.contiguous(), w2, w3, cvec, gate, silu_in, True)
+            return self._fused(group, x, w2, w3, cvec, gate, silu_in, True)
         # the halo's noise level: the clean frames of a sample share one sigma
         pad = [c_noise[:, :1].expand(-1, HALO), c_noise[:, :t_l],
                c_noise[:, t_l:t_l + 1].expand(-1, HALO), c_noise[:, t_l:]]
         gate = self.gating(torch.cat(pad, dim=1), frames - HALO, train=True).float()
-        y = fused_gated_conv(x.contiguous(), w2, w3, cvec, gate, silu_in, True)
+        y = self._fused(group, x, w2, w3, cvec, gate, silu_in, True)
         return torch.cat([y[:, HALO:HALO + t_l], y[:, 2 * HALO + t_l:]], dim=1)

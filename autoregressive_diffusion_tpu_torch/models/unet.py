@@ -26,7 +26,8 @@ recomputed in the backward, the conv and attention kernels launched again,
 and the recomputed Block reads the mask drawn before it, so the gradients
 equal the plain ones. cfg.decode_quant serves int8 decode weights (every
 MPConv and MPCausalConv3d, models/layers.py) and int8 K/V rings, in eval
-mode only.
+mode only. A model sharded by parallel.shard_train_state (tensor
+parallelism, FSDP: models/layers.py) trains only; eval mode raises.
 """
 from __future__ import annotations
 
@@ -278,6 +279,7 @@ class UNet(nn.Module):
     def __init__(self, cfg: UNetConfig):
         super().__init__()
         self.cfg = cfg
+        self.sharded = False  # set by parallel.shard_train_state
         self.out_gain = nn.Parameter(torch.zeros(()))
         self.out_res = Gating()  # frame bookkeeping only; kept for parameter parity
         self.emb_fourier_sigma = MPFourier(cfg.cnoise)
@@ -315,6 +317,9 @@ class UNet(nn.Module):
         if drop and dropout_generator is None:
             raise ValueError("train mode with dropout > 0 draws its masks from an explicit "
                              "generator: pass dropout_generator")
+        if mode != "train" and self.sharded:
+            raise ValueError("a model sharded for training serves no eval call: build one from "
+                             "parallel.gather_to_host's weights")
         if mode == "train" and cfg.decode_quant:
             raise ValueError("int8 weights are a decode-only path: train with "
                              "decode_quant=False")

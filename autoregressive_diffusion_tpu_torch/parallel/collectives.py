@@ -1,4 +1,5 @@
-"""The collectives of sequence-parallel training, under autograd.
+"""The collectives of sequence, tensor and fully sharded data parallelism,
+under autograd.
 
 The JAX package leaves these to XLA: inside its shard_map the K/V
 all-gather of the sequence-parallel attention (ops/flash_attention.py:
@@ -14,6 +15,19 @@ are explicit torch.distributed calls on a `seq` process group:
     The forward hands each rank the last 2 clean frames (and their cvec
     rows) of the rank before it and returns the extended DART concat; the
     backward returns their gradient to that rank.
+
+Tensor parallelism (a weight's output channels split over the `model`
+group) and FSDP (a weight's largest free axis split over `data`) need
+three more, which XLA inserts around the JAX package's sharded matmuls:
+
+  * copy_to_model: the identity; the backward sums the gradient over the
+    model group. Every replicated input of a TP-sharded layer passes
+    through it, since each model rank computes its gradient from its own
+    output channels only;
+  * gather_model: this rank's output channels -> all of them, model-rank
+    major on the last axis; the backward takes this rank's slice;
+  * fsdp_gather: a weight's shard -> the whole weight along its FSDP axis;
+    the backward reduce-scatters (sums) the gradient back to the shards.
 
 Transport: on a gloo group, CUDA tensors cross the host (`_host_staged`):
 they are copied to host memory, the collective runs there, and the result
@@ -62,12 +76,27 @@ def reduce_scatter_flat(t: torch.Tensor, group) -> torch.Tensor:
 
 def all_reduce_sum_(t: torch.Tensor, group=None) -> torch.Tensor:
     """Sum `t` over the ranks of `group` (default: all ranks), in place."""
+    if group is not None and dist.get_world_size(group) == 1:
+        return t
     if _host_staged(t, group):
         host = t.detach().to("cpu", torch.float32)
         dist.all_reduce(host, group=group)
         t.copy_(host)
     else:
         dist.all_reduce(t, group=group)
+    return t
+
+
+def broadcast_(t: torch.Tensor, src: int, group) -> torch.Tensor:
+    """`t` of global rank `src` on every rank of `group`, in place."""
+    if dist.get_world_size(group) == 1:
+        return t
+    if _host_staged(t, group):
+        host = t.detach().cpu()
+        dist.broadcast(host, src, group=group)
+        t.copy_(host)
+    else:
+        dist.broadcast(t, src, group=group)
     return t
 
 
@@ -156,3 +185,74 @@ def exchange_halo(x: torch.Tensor, cvec, group):
     if cvec is None:
         return _ExchangeHalo.apply(group, x)[0], None
     return _ExchangeHalo.apply(group, x, cvec)
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_sum_(g.contiguous().clone(), ctx.group), None
+
+
+def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
+    """x as it is; the backward sums its gradient over `group` (the model
+    ranks of a TP-sharded layer, each of which holds the gradient from its
+    own output channels)."""
+    if dist.get_world_size(group) == 1:
+        return x
+    return _CopyToModel.apply(x, group)
+
+
+class _GatherModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y, group):
+        n, c = dist.get_world_size(group), y.shape[-1]
+        ctx.lo = dist.get_rank(group) * c
+        ctx.c = c
+        g = all_gather_flat(y.contiguous(), group).view((n,) + tuple(y.shape))
+        return g.movedim(0, -2).reshape(tuple(y.shape[:-1]) + (n * c,))
+
+    @staticmethod
+    def backward(ctx, dy):
+        return dy[..., ctx.lo:ctx.lo + ctx.c].contiguous(), None
+
+
+def gather_model(y: torch.Tensor, group) -> torch.Tensor:
+    """(..., C/tp) of every rank of `group` -> (..., C), rank-major on the
+    last axis (the contiguous chunks of a TP-sharded weight's output
+    channels). The backward takes this rank's chunk of the gradient."""
+    if dist.get_world_size(group) == 1:
+        return y
+    return _GatherModel.apply(y, group)
+
+
+class _FSDPGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, w, axis, group):
+        n = dist.get_world_size(group)
+        ctx.axis, ctx.group = axis, group
+        moved = w.movedim(axis, 0).contiguous()
+        g = all_gather_flat(moved, group).view((n * moved.shape[0],) + tuple(moved.shape[1:]))
+        return g.movedim(0, axis).contiguous()  # the kernels take contiguous weights
+
+    @staticmethod
+    def backward(ctx, dw):
+        n = dist.get_world_size(ctx.group)
+        moved = dw.movedim(ctx.axis, 0).contiguous()
+        mine = reduce_scatter_flat(moved, ctx.group)
+        mine = mine.view((moved.shape[0] // n,) + tuple(moved.shape[1:]))
+        return mine.movedim(0, ctx.axis), None, None
+
+
+def fsdp_gather(w: torch.Tensor, axis: int, group) -> torch.Tensor:
+    """The whole weight from this data rank's chunk `w` of axis `axis`
+    (contiguous chunks in rank order over `group`). The backward
+    reduce-scatters the gradient: each rank gets the sum over the group of
+    its chunk's gradient."""
+    if dist.get_world_size(group) == 1:
+        return w
+    return _FSDPGather.apply(w, axis, group)

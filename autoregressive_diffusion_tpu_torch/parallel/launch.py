@@ -5,7 +5,9 @@ environment torchrun would (RANK, LOCAL_RANK, WORLD_SIZE, MASTER_ADDR,
 MASTER_PORT on a free localhost port) and returns what each rank's
 function returned. chip_smoke.py uses it to run two ranks on one card, the
 tests to run gloo ranks on the CPU. Every process it starts has ended when
-it returns or raises.
+it returns or raises. The function and its arguments reach the ranks
+through a file in the temporary directory, not the spawn pipe, which would
+hold each start until the rank before had imported its modules.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import os
 import pickle
 import queue
 import socket
+import tempfile
 import time
 import traceback
 
@@ -24,10 +27,12 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def _rank_main(fn, rank, world, port, args, results):
+def _rank_main(job, rank, world, port, results):
     os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(world),
                       MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
     try:
+        with open(job, "rb") as f:
+            fn, args = pickle.load(f)
         # plain pickle: a tensor is sent by value, not as a shared-memory
         # handle that dies with this process
         results.put((rank, True, pickle.dumps(fn(*args))))
@@ -44,8 +49,11 @@ def run_local_ranks(fn, world: int, args=(), timeout: float = 600.0) -> list:
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     port = free_port()
-    procs = [ctx.Process(target=_rank_main, args=(fn, r, world, port, args, results),
-                         daemon=True) for r in range(world)]
+    fd, job = tempfile.mkstemp(suffix=".ranks.pkl")
+    with os.fdopen(fd, "wb") as f:
+        pickle.dump((fn, args), f)
+    procs = [ctx.Process(target=_rank_main, args=(job, r, world, port, results), daemon=True)
+             for r in range(world)]
     for p in procs:
         p.start()
     got, errors = {}, []
@@ -77,6 +85,7 @@ def run_local_ranks(fn, world: int, args=(), timeout: float = 600.0) -> list:
                 p.kill()
                 p.join()
         results.close()
+        os.unlink(job)
     if errors:
         raise RuntimeError("\n".join(errors))
     return [got[r] for r in range(world)]

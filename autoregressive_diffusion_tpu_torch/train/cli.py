@@ -91,7 +91,7 @@ def run_steps(state, train_step, images, cond, steps: int, seed: int = 0,
     loss, unweighted loss, gradient norm, seconds on the host clock around a
     synchronise, samples/s (of the global batch, under a `mesh`)."""
     dev = images.device
-    batch = images.shape[0] * (1 if mesh is None else mesh.dp)
+    batch = images.shape[0] * (1 if mesh is None else mesh.batch_ranks)
     rows = []
     for _ in range(steps):
         i = state.step

@@ -72,9 +72,11 @@ def edm2_loss(model, images: torch.Tensor, seed: int, cfg: EDM2LossConfig,
     sample_offset is the global index of its first sample, and the loss
     and the unweighted mean are this rank's share of the global means: sums
     over its (sample, frame) terms over the count of the whole
-    microbatch's (b * dp samples, t * sp frames), to be summed over all
-    ranks. Each rank draws the whole sample's sigma and eps and keeps its
-    frames, so the split step draws what the one-process step draws.
+    microbatch's (b * replicas * dp samples, t * sp frames), to be summed
+    over the ranks of the mesh's grad group (the model ranks of a position
+    compute the same terms). Each rank draws the whole sample's sigma and
+    eps and keeps its frames, so the split step draws what the one-process
+    step draws.
 
     sigma and noise are drawn per sample from generators keyed by
     (seed, sample_offset + i), so gradient accumulation over microbatch
@@ -93,7 +95,7 @@ def edm2_loss(model, images: torch.Tensor, seed: int, cfg: EDM2LossConfig,
         cond = (torch.cat([conditioning, conditioning], dim=1)
                 if conditioning is not None else None)
 
-    sp, dp = (1, 1) if mesh is None else (mesh.sp, mesh.dp)
+    sp, dp = (1, 1) if mesh is None else (mesh.sp, mesh.batch_ranks)
     if sigma is None:
         draws = [draw_sigma_noise(seed, sample_offset + i, t * sp, images.shape[2:], cfg,
                                   just_2d, dev) for i in range(b)]

@@ -77,6 +77,12 @@ class MultiNoiseState:
 
 
 def fit_and_broadcast(state: MultiNoiseState) -> np.ndarray:
-    """The fit, for every process. The port runs one process, which holds
-    the whole history, so this is the local fit."""
-    return state.fit()
+    """The fit, for every process: rank 0's, broadcast to every rank when
+    a torch.distributed process group of several ranks is up (JAX package
+    loss_weight.py), else the local fit."""
+    import torch.distributed as dist
+    if not (dist.is_available() and dist.is_initialized()) or dist.get_world_size() == 1:
+        return state.fit()
+    box = [state.fit() if dist.get_rank() == 0 else None]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]

@@ -8,11 +8,16 @@ state, this one updates the model's parameters, the optimizer state and the
 EMA copies in place and returns the same TrainState object.
 
 With a mesh (parallel.create_mesh) the step is one rank's part of a
-data x seq parallel step: the rank's samples and frames run through the
-model under the sequence-parallel context, the gradients are summed over
-all ranks before the clip (so its norm is the global one), and the
-optimizer, the forced weight norm and the EMA then run identically on
-every rank. The metrics are global.
+replica x data x seq x model parallel step: the rank's samples and frames
+run through the model under the sequence-parallel context, and every
+gradient is summed exactly once before the clip (so its norm is the global
+one): replicated and TP-sharded leaves over replica x data x seq, never
+over `model` (each model rank holds the same gradient for a replicated
+leaf), FSDP leaves reduce-scattered over `data` in the backward and summed
+over replica x seq (parallel/mesh.all_reduce_grads). The optimizer, the
+forced weight norm and the EMA then run on each rank's shards
+(parallel.shard_train_state; on the whole leaves when nothing is
+sharded). The metrics are global and count each term once.
 
 `make_scanned_train_step` and `make_replay_train_step` run G steps a call,
 where the JAX package scans them on the device to hide its host link: here
@@ -43,6 +48,8 @@ class TrainState:
     ema: Tuple[dict, ...]          # one {name: tensor} copy per EMA std
     coefs: torch.Tensor            # MultiNoiseLoss Fourier coefficients (7, 1)
     ema_stds: Tuple[float, ...] = (0.050, 0.100)
+    mesh: Any = None               # set with specs by parallel.shard_train_state
+    specs: Optional[dict] = None   # {parameter name: spec}: params, EMA, AdamW are shards
 
     @property
     def params(self) -> dict:
@@ -81,7 +88,7 @@ def make_train_step(loss_cfg: EDM2LossConfig, tx: ClippedAdamW, batch_size: int,
         if b % m:
             raise ValueError(f"batch {b} is not a multiple of microbatch {m}")
         n = b // m
-        first = 0 if mesh is None else mesh.data_rank * b  # global index of sample 0
+        first = 0 if mesh is None else mesh.batch_rank * b  # global index of sample 0
         loss_sum, unweighted, sigs, lss = 0.0, 0.0, [], []
         for j in range(n):
             sl = slice(j * m, (j + 1) * m)
@@ -100,15 +107,17 @@ def make_train_step(loss_cfg: EDM2LossConfig, tx: ClippedAdamW, batch_size: int,
         return loss_sum, aux
 
     def sharded_grads_of(state, images, conditioning, seed, just_2d, sigma, noise):
-        """grads_of under the mesh's SP context, then the sums over all ranks."""
+        """grads_of under the mesh's SP context, then the sums over the
+        ranks that hold each leaf and each loss term."""
         outer = sp_context()
         set_sp_context(mesh)
         try:
             loss, aux = grads_of(state, images, conditioning, seed, just_2d, sigma, noise)
         finally:
             set_sp_context(outer)
-        all_reduce_grads(state.model.parameters(), mesh)
-        totals = all_reduce_sum_(torch.stack([loss, aux["unweighted"]]).float())
+        all_reduce_grads(state.params, mesh, state.specs)
+        totals = all_reduce_sum_(torch.stack([loss, aux["unweighted"]]).float(),
+                                 mesh.grad_group)
         aux = dict(sigma=gather_batch(aux["sigma"], mesh),
                    losses=gather_batch(aux["losses"], mesh), unweighted=totals[1])
         return totals[0], aux
@@ -117,9 +126,14 @@ def make_train_step(loss_cfg: EDM2LossConfig, tx: ClippedAdamW, batch_size: int,
                    just_2d: bool = False, sigma=None, noise=None):
         grads = grads_of if mesh is None else sharded_grads_of
         loss, aux = grads(state, images, conditioning, seed, just_2d, sigma, noise)
-        grad_norm = tx.update(state.opt_state, state.step)
         params = state.params
-        forced_weight_norm(params)
+        specs = None
+        if state.specs is not None:
+            name_of = {id(p): n for n, p in params.items()}
+            specs = [state.specs[name_of[id(p)]]
+                     for g in state.opt_state.param_groups for p in g["params"]]
+        grad_norm = tx.update(state.opt_state, state.step, specs, state.mesh)
+        forced_weight_norm(params, state.specs, state.mesh)
 
         # power-function EMA
         step1 = state.step + 1

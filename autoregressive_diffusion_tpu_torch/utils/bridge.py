@@ -265,25 +265,24 @@ def _named_opt_params(state):
     return [(name_of[id(p)], p) for g in state.opt_state.param_groups for p in g["params"]]
 
 
-def _adamw_tree(state) -> dict:
+def _adamw_tree(state, gather=None) -> dict:
     """The AdamW state as optax names it: mu, nu (trees of the parameters'
-    names) and count, the number of updates taken."""
+    names) and count, the number of updates taken. gather(names, tensors),
+    if given, maps the moments to their full tensors first
+    (parallel/mesh.py)."""
     opt = state.opt_state
-    mu, nu, counts = [], [], set()
-    for name, p in _named_opt_params(state):
-        st = opt.state.get(p, {})
-        if st:
-            counts.add(int(float(st["step"])))
-            mu.append((name, _host(st["exp_avg"])))
-            nu.append((name, _host(st["exp_avg_sq"])))
-        else:
-            counts.add(0)
-            zero = np.zeros(tuple(p.shape), np.float32)
-            mu.append((name, zero))
-            nu.append((name, zero.copy()))
+    named = _named_opt_params(state)
+    names = [n for n, _ in named]
+    counts = {int(float(opt.state[p]["step"])) if opt.state.get(p) else 0 for _, p in named}
     if len(counts) != 1:
         raise ValueError(f"train bridge: AdamW step counts differ between parameters: {counts}")
-    return {"mu": _nest(mu), "nu": _nest(nu), "count": np.asarray(counts.pop(), np.int32)}
+    moments = {}
+    for k in ("exp_avg", "exp_avg_sq"):
+        ts = [opt.state[p][k] if opt.state.get(p) else torch.zeros_like(p) for _, p in named]
+        moments[k] = ts if gather is None else gather(names, ts)
+    return {"mu": _nest(zip(names, map(_host, moments["exp_avg"]))),
+            "nu": _nest(zip(names, map(_host, moments["exp_avg_sq"]))),
+            "count": np.asarray(counts.pop(), np.int32)}
 
 
 def _load_adamw(state, mu_tree, nu_tree, count: int) -> None:
@@ -303,15 +302,25 @@ def _load_adamw(state, mu_tree, nu_tree, count: int) -> None:
     opt.load_state_dict(sd)  # moves the moments to each parameter's device
 
 
-def train_state_tree(state) -> dict:
+def train_state_tree(state, gather=None) -> dict:
     """The port's TrainState as host numpy copies under the JAX package's
     names: {"step", "params", "buffers", "ema": {"0": tree, ...},
-    "ema_stds", "opt_state": {"mu", "nu", "count"}, "coefs"}."""
-    return {"step": np.asarray(state.step, np.int64), **jax_variables(state.model),
-            "ema": {str(i): _nest((n, _host(t)) for n, t in e.items())
-                    for i, e in enumerate(state.ema)},
+    "ema_stds", "opt_state": {"mu", "nu", "count"}, "coefs"}.
+    gather(names, tensors), if given, maps the parameters, each EMA copy and
+    each AdamW moment to their full tensors first
+    (parallel/mesh.gather_to_host)."""
+    full = (lambda names, ts: ts) if gather is None else gather
+
+    def tree(named):
+        names, ts = zip(*named) if named else ((), ())
+        return _nest(zip(names, map(_host, full(list(names), list(ts)))))
+
+    return {"step": np.asarray(state.step, np.int64),
+            "params": tree(list(state.model.named_parameters())),
+            "buffers": _nest((n, _host(t)) for n, t in state.model.named_buffers()),
+            "ema": {str(i): tree(list(e.items())) for i, e in enumerate(state.ema)},
             "ema_stds": np.asarray(state.ema_stds, np.float64),
-            "opt_state": _adamw_tree(state),
+            "opt_state": _adamw_tree(state, gather),
             "coefs": _host(state.coefs)}
 
 

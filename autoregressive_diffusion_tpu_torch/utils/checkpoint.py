@@ -413,8 +413,10 @@ def wait_for_pending_saves() -> None:
 
 def save_train_state(ckpt_dir, step: int, state, extra: Optional[dict] = None,
                      keep: Optional[int] = None, block: bool = True) -> Path:
-    """Write `state` (a train/train_state.TrainState) to
-    ckpt_dir/step_{step:09d}/, replacing a checkpoint of the same step.
+    """Write `state` (a train/train_state.TrainState, or the host tree of
+    one that utils/bridge.train_state_tree or parallel.gather_to_host
+    made) to ckpt_dir/step_{step:09d}/, replacing a checkpoint of the same
+    step.
     `extra` is a flat map of array-likes (a list becomes a 1-d array), read
     back by restore_train_state as numpy arrays.
 
@@ -433,7 +435,7 @@ def save_train_state(ckpt_dir, step: int, state, extra: Optional[dict] = None,
     wait_for_pending_saves()
     root = Path(os.fspath(ckpt_dir)).absolute()
     final = root / f"step_{step:09d}"
-    tree = {"state": train_state_tree(state),
+    tree = {"state": state if isinstance(state, dict) else train_state_tree(state),
             "extra": {str(k): np.asarray(v) for k, v in (extra or {}).items()}}
 
     def write():

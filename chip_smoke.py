@@ -173,6 +173,24 @@ Phases, each of which fails the run with a non-zero exit:
      episode 0 for 8 frames: the series finite and in drift.npz, 17 decode
      Blocks a denoiser call, 6 prefill launches a prefill. Its launches join
      the kernels line.
+ 14. tensor parallelism, FSDP and the replica axis (parallel/mesh.py), the
+     ranks spawned on this card under gloo: (a) the train-mode fused conv
+     kernels (rows 1 and 2), forward and backward, against their plain
+     version at the CS shapes cut to one rank's output channels under --tp
+     2 (every width of at least 128 halved), fp32 and bf16, with the
+     kernels' device times; (b) cs_train --tp 2 --fsdp at 32 channels,
+     fp32, on 4 ranks (tp 2 x dp 2) for 2 steps against the same run in
+     one process on the card: losses within rtol 2e-4, parameters within
+     2e-4, the replicas consistent; (c) the full-width 310M CS model (bf16,
+     batch 8 in microbatches of 2, T=16) under --tp 2, --fsdp (2 data
+     ranks) and --sp 2 in turn on 2 ranks, 2 DART steps each (the first
+     warms up, the second is the one timed): every rank's step ms,
+     peak MB, the MB of its parameters, AdamW moments and EMA copies
+     against one process's 5911.6 MB, and its conv and flash launches
+     counted from 0 before each step, held to the model's convs and
+     attention layers; (d) (b)'s save, gathered by every rank and written
+     by rank 0, restored in one process: every leaf bit for bit. Its
+     launches join the kernels line.
 Then it prints the `kernels` JSON line, the nvidia-smi line and, last,
 {"ok": true, "device": {...}}. It exits non-zero, printing no result, when
 no CUDA device is present or the port's package is not beside it.
@@ -1013,15 +1031,16 @@ def conv_cost(b, f, h, w, c, co, has_cv, with_ctx, dtype):
     return (fwd, fwd_bytes), (bwd, bwd_bytes)
 
 
-def conv_phase(fc, cfg, b=8, t=8, label="gym", odd=True):
+def conv_phase(fc, cfg, b=8, t=8, label="gym", odd=True, calls=None, timed=True):
     """Kernels against the plain version at every distinct causal conv of
-    the model (batch b, T=t; keys labelled `label`) and, with `odd`, the odd
-    shapes, fp32 and bf16; bf16 also run twice, bit for bit. Times: the
-    forward and the backward entry point each on its own, and the unfused
-    cuDNN path's forward and its backward (autograd over a kept graph), as
-    device time (device_ms) and as wall time a call; the plain version's as
-    wall time."""
-    calls = conv_calls(cfg)
+    the model (batch b, T=t; keys labelled `label`; `calls` in place of the
+    model's, as conv_calls gives them) and, with `odd`, the odd shapes,
+    fp32 and bf16; bf16 also run twice, bit for bit. Times: the forward and
+    the backward entry point each on its own, and the unfused cuDNN path's
+    forward and its backward (autograd over a kept graph), as device time
+    (device_ms) and as wall time a call; the plain version's as wall time.
+    timed=False: the kernels' device times only."""
+    calls = conv_calls(cfg) if calls is None else calls
     shapes = sorted(set(s for _, s in calls), key=lambda s: (-s[0], s[1], s[2], s[3], s[4]))
     cases = [(label, b, 2 * t if ctx else t, h, h, c, co, silu, cv, ctx)
              for (h, c, co, silu, cv) in shapes for ctx in (True, False)]
@@ -1097,6 +1116,23 @@ def conv_phase(fc, cfg, b=8, t=8, label="gym", odd=True):
             def graph_bwd(out):
                 return lambda: torch.autograd.grad(out, need, gout, retain_graph=True)
 
+            (ff, fb), (bf, bb_) = conv_cost(bb, f, h, w, c, co, has_cv, ctx, dtype)
+            bound_f, by_f = bound(ff, fb, dtype)
+            bound_b, by_b = bound(bf, bb_, dtype)
+            key = (kind, bb, f, h, w, c, co, silu, has_cv, ctx, dname)
+            if not timed:
+                r = dict(fwd_ms=device_ms(lambda: fwd_only(fc.fused_gated_conv), iters, 1),
+                         bwd_ms=device_ms(kernel_bwd, iters, 1))
+                results[key] = dict(ok=bool(ok), max_abs_err=worst, errs=errs, repeat=repeat,
+                                    **r, bound_fwd_ms=bound_f, bound_bwd_ms=bound_b,
+                                    bound_fwd_by=by_f, bound_bwd_by=by_b)
+                detail = " ".join(f"{n}={e:.2e}/{tl:.1e}" for n, (e, tl) in errs.items())
+                log(f"# conv {dname:8s} {kind} B={bb} F={f:2d} {h:2d}x{w:2d} C={c:3d} "
+                    f"Co={co:3d} silu={int(silu)} cv={int(has_cv)} ctx={int(ctx)} ok={ok} "
+                    f"repeat={repeat} {detail} | device ms fwd={r['fwd_ms']:.4f} "
+                    f"bwd={r['bwd_ms']:.4f} | bound={bound_f:.4f}+{bound_b:.4f} "
+                    f"({by_f}, {by_b})")
+                continue
             plain_out = fc.fused_gated_conv_plain(*leaves, silu, ctx)
             unf_out = unfused_cudnn_conv(*leaves, silu, ctx)
             r = dict(
@@ -1111,10 +1147,6 @@ def conv_phase(fc, cfg, b=8, t=8, label="gym", odd=True):
                 plain_fwd_ms=time_ms(lambda: fwd_only(fc.fused_gated_conv_plain), iters, 1),
                 plain_bwd_ms=time_ms(graph_bwd(plain_out), iters, 1))
             del plain_out, unf_out
-            (ff, fb), (bf, bb_) = conv_cost(bb, f, h, w, c, co, has_cv, ctx, dtype)
-            bound_f, by_f = bound(ff, fb, dtype)
-            bound_b, by_b = bound(bf, bb_, dtype)
-            key = (kind, bb, f, h, w, c, co, silu, has_cv, ctx, dname)
             results[key] = dict(ok=bool(ok), max_abs_err=worst, errs=errs, repeat=repeat, **r,
                                 bound_fwd_ms=bound_f, bound_bwd_ms=bound_b, bound_fwd_by=by_f,
                                 bound_bwd_by=by_b)
@@ -3106,6 +3138,340 @@ def ref_drift_phase(fa, fc, build_trainer, synthetic_batch, run_steps, edm2_loss
     return failures, summary, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 14: tensor parallelism, FSDP and the replica axis (parallel/mesh.py):
+# the CS model trained by cs_train --tp / --fsdp, and CS --sp; the ranks
+# share cuda:0 under gloo, whose collectives cross the host
+
+TP_SHARD = 128   # cs_train's min_shard_size: the output widths --tp splits
+TP_STEPS = 2     # full-width DART steps a configuration (the first warms up)
+TP_CONFIGS = (("tp2", ["--tp", "2"]), ("fsdp", ["--fsdp"]), ("sp2", ["--sp", "2"]))
+# (b), (d): the CS layout at 32 channels (widths 32-128, so that --tp
+# splits the 128-wide convs and attention), fp32, 2 steps (just_2d, DART)
+TP_SMALL = ["--model-channels", "32", "--dtype", "fp32", "--batch", "4", "--micro-batch", "2",
+            "--clip-size", "8", "--synthetic", "--steps", "2", "--use-actions"]
+ONE_PROCESS_STATE_MB = 5911.6  # the 310M CS train state in one process (phase 11's save)
+
+
+def tp_local_calls(cfg, tp=2):
+    """conv_calls with every output width that cs_train --tp splits
+    (divisible by tp and at least TP_SHARD) cut to one rank's part."""
+    return [(n, (h, c, co // tp if co % tp == 0 and co >= TP_SHARD else co, silu, cv))
+            for n, (h, c, co, silu, cv) in conv_calls(cfg)]
+
+
+def leaf_hashes(tree, prefix="") -> dict:
+    """{path: (dtype, shape, sha1 of the bytes)} of a nested dict of arrays."""
+    import hashlib
+    import numpy as np
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(leaf_hashes(v, f"{prefix}{k}/"))
+        else:
+            a = np.ascontiguousarray(np.asarray(v))
+            out[prefix + k] = (str(a.dtype), a.shape, hashlib.sha1(a.tobytes()).hexdigest())
+    return out
+
+
+def rank_counts(fa, fc, zero=False) -> dict:
+    names = FLASH_COUNTERS + SP_COUNTERS
+    c = dict(conv_fwd=fc.conv_fwd_launches, conv_bwd=fc.conv_bwd_launches,
+             **{n.removesuffix("_launches"): getattr(fa, n) for n in names})
+    if zero:
+        fc.conv_fwd_launches = fc.conv_bwd_launches = 0
+        for n in names:
+            setattr(fa, n, 0)
+    return c
+
+
+def state_mb(state) -> float:
+    """This rank's parameters, EMA copies and AdamW moments, MB."""
+    ts = list(state.model.parameters()) + [t for e in state.ema for t in e.values()]
+    ts += [t for st in state.opt_state.state.values() for k, t in st.items()
+           if k in ("exp_avg", "exp_avg_sq")]
+    return sum(t.numel() * t.element_size() for t in ts) / 2 ** 20
+
+
+def time_collectives() -> dict:
+    """Wrap the port's collective helpers (parallel/collectives.py, and the
+    names parallel/mesh.py and train/optim.py import from it) with host
+    timers, each ended by a synchronise, so that a call's time holds its
+    host staging and its wait for the other ranks. Returns the dict they
+    add into: {name: [calls, seconds]}."""
+    from autoregressive_diffusion_tpu_torch.parallel import collectives, mesh
+    from autoregressive_diffusion_tpu_torch.train import optim
+    stats = {}
+
+    def wrap(name, fn):
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+            c = stats.setdefault(name, [0, 0.0])
+            c[0] += 1
+            c[1] += time.perf_counter() - t0
+            return out
+        return timed
+
+    for name in ("all_gather_flat", "reduce_scatter_flat", "all_reduce_sum_", "broadcast_"):
+        timed = wrap(name, getattr(collectives, name))
+        for mod in (collectives, mesh, optim):
+            if hasattr(mod, name):
+                setattr(mod, name, timed)
+    return stats
+
+
+def tp_small_rank(argv):
+    """(b), (d): cs_train at TP_SMALL on this rank of 4 (tp 2 x dp 2, FSDP):
+    its loop and final save, the launches counted from 0; the losses, the
+    replica check, and on rank 0 the hashes of the gathered state."""
+    import contextlib
+    import io
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from autoregressive_diffusion_tpu_torch import cs_train
+    from autoregressive_diffusion_tpu_torch.ops import flash_attention as fa
+    from autoregressive_diffusion_tpu_torch.ops import fused_conv as fc
+    from autoregressive_diffusion_tpu_torch.parallel import (check_replica_consistency,
+                                                             gather_to_host, train_state_leaves)
+    tr = cs_train.build_trainer(cs_train.parse_args(argv))
+    rank_counts(fa, fc, zero=True)
+    with contextlib.redirect_stdout(io.StringIO()):
+        cs_train.train_loop(tr, cs_train.make_loader(tr))
+    counts = rank_counts(fa, fc)
+    named, specs = train_state_leaves(tr.state)
+    bad = check_replica_consistency(named, tr.mesh, specs=specs)
+    host = gather_to_host(tr.state)
+    out = dict(rank=tr.mesh.rank, losses=list(tr.losses), counts=counts, mismatches=bad,
+               n_model=sum("model" in s for s in tr.state.specs.values()),
+               n_data=sum("data" in s for s in tr.state.specs.values()),
+               state_mb=state_mb(tr.state), hashes=leaf_hashes(host) if tr.mesh.rank == 0 else None)
+    torch.distributed.destroy_process_group()
+    return out
+
+
+def tp_cs_rank(configs, steps, device):
+    """(c): on this rank of 2, for each (name, flags) of `configs` in turn,
+    the full-width CS model (cs_train.build_trainer at its defaults: bf16
+    body, batch 8 in microbatches of 2, T=16, synthetic latents; the
+    process group stays, each configuration makes its grid's groups)
+    under `flags`, `steps` DART steps through CSTrainer.step, each step's
+    launches counted from 0; step ms, peak MB after the build, the state's
+    MB, the replica check, the configuration's seconds."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from autoregressive_diffusion_tpu_torch import cs_train
+    from autoregressive_diffusion_tpu_torch.models.attention import (FrameAttention,
+                                                                     VideoAttention)
+    from autoregressive_diffusion_tpu_torch.ops import flash_attention as fa
+    from autoregressive_diffusion_tpu_torch.ops import fused_conv as fc
+    from autoregressive_diffusion_tpu_torch.parallel import (check_replica_consistency,
+                                                             train_state_leaves)
+    cuda = device == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    coll = time_collectives()
+    results = {}
+    for name, flags in configs:
+        t_cfg = time.perf_counter()
+        args = cs_train.parse_args(["--synthetic", "--device", device, "--backend", "gloo",
+                                    "--steps", str(steps + 1), "--ckpt-dir", "unused"] + flags)
+        tr = cs_train.build_trainer(args)
+        model = tr.state.model
+        sync()
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        loader = cs_train.make_loader(tr)
+        rows = []
+        for i in range(1, steps + 1):  # i % 4 != 0: DART steps
+            latents, actions = next(loader)
+            sync()
+            rank_counts(fa, fc, zero=True)
+            coll.clear()
+            t0 = time.perf_counter()
+            m = tr.step(i, latents, actions)
+            loss = float(m["loss"])
+            sync()
+            rows.append(dict(step=i, loss=loss, ms=(time.perf_counter() - t0) * 1e3,
+                             collectives={k: (n, s * 1e3) for k, (n, s) in coll.items()},
+                             counts=rank_counts(fa, fc),
+                             grads_finite=all(bool(torch.isfinite(p.grad).all())
+                                              for p in model.parameters())))
+        named, specs = train_state_leaves(tr.state)
+        results[name] = dict(
+            rank=tr.mesh.rank, rows=rows, state_mb=state_mb(tr.state),
+            peak_mb=torch.cuda.max_memory_allocated() / 2 ** 20 if cuda else None,
+            mismatches=check_replica_consistency(named, tr.mesh, specs=specs),
+            n_video=sum(isinstance(x, VideoAttention) for x in model.modules()),
+            n_frame=sum(isinstance(x, FrameAttention) for x in model.modules()),
+            n_convs=len(conv_calls(tr.cfg)), micro=args.batch // args.micro_batch,
+            local_batch=args.batch // tr.mesh.batch_ranks,
+            grid=dict(dp=tr.mesh.dp, sp=tr.mesh.sp, tp=tr.mesh.tp, fsdp=args.fsdp),
+            n_params=tr.n_params, batch=args.batch)
+        del tr, model, loader, named
+        if cuda:
+            torch.cuda.empty_cache()
+        results[name]["seconds"] = time.perf_counter() - t_cfg
+    torch.distributed.destroy_process_group()
+    return results
+
+
+def tp_phase(fc, cs_cfg, steps=TP_STEPS, small=TP_SMALL, full_flags=()):
+    """Phase 14: (a) the fused conv kernels at the TP-local CS shapes
+    against their plain version; (b) cs_train --tp 2 --fsdp at TP_SMALL on 4
+    ranks against one process on the card (losses rtol 2e-4, parameters
+    within 2e-4, the bounds of tests/test_sharding.py:63-73) and (d) its
+    save restored in one process, every leaf bit for bit; (c) the full-width
+    CS model under --tp 2, --fsdp and --sp 2, 2 ranks each, `steps` DART
+    steps: step ms, peak MB, each rank's state against one process's, the
+    conv and flash launches of each step against the model's layers.
+    `small` and `full_flags` (e.g. ["--model-channels", "16"]) shrink it for
+    a rehearsal on the CPU. Returns (failures, summary, launches)."""
+    import contextlib
+    import io
+    import numpy as np
+    from autoregressive_diffusion_tpu_torch import cs_train
+    from autoregressive_diffusion_tpu_torch.parallel import run_local_ranks
+    from autoregressive_diffusion_tpu_torch.utils.bridge import train_state_tree
+    failures, summary = [], {}
+    launches = {k: 0 for k in ("conv_fwd", "conv_bwd", "dart_fwd", "dart_bwd", "full_fwd",
+                               "full_bwd", "dart_sp_fwd", "dart_sp_bwd")}
+    t_phase = time.perf_counter()
+
+    # (a) rows 1 and 2 at the TP-local shapes
+    calls = tp_local_calls(cs_cfg)
+    _, conv_results = conv_phase(fc, cs_cfg, b=2, t=16, label="cs-tp2", odd=False, calls=calls,
+                                 timed=False)
+    failures += [f"tp-local fused conv {k}" for k, r in conv_results.items() if not r["ok"]]
+    per_mb = {}
+    for dname in ("float32", "bfloat16"):
+        rs = [conv_results[("cs-tp2", 2, 32, h, h, c, co, silu, cv, True, dname)]
+              for _, (h, c, co, silu, cv) in calls]
+        per_mb[dname] = (sum(r["fwd_ms"] for r in rs), sum(r["bwd_ms"] for r in rs),
+                         sum(r["bound_fwd_ms"] for r in rs), sum(r["bound_bwd_ms"] for r in rs))
+    split = sum(co != full[1][2] for (_, (_, _, co, _, _)), full in zip(calls, conv_calls(cs_cfg)))
+    log(f"# tp-kernels conv: {len(calls)} causal convs of a DART microbatch at the TP-local "
+        f"widths of --tp 2 ({split} split; batch 2, T=16): bf16 device ms fwd="
+        f"{per_mb['bfloat16'][0]:.3f} bwd={per_mb['bfloat16'][1]:.3f} (bound "
+        f"{per_mb['bfloat16'][2]:.4f} + {per_mb['bfloat16'][3]:.4f}); fp32 fwd="
+        f"{per_mb['float32'][0]:.3f} bwd={per_mb['float32'][1]:.3f}; all ok="
+        f"{all(r['ok'] for r in conv_results.values())}")
+    summary["conv_tp_local"] = dict(per_microbatch=per_mb, split=split,
+                                    cases=len(conv_results))
+    torch.cuda.empty_cache()
+
+    work = ROOT / "build" / f"tp_phase_{int(time.time() * 1e3)}"
+    try:
+        # (b) one process, then 4 ranks (tp 2 x dp 2, FSDP); (d) the restore
+        t0 = time.perf_counter()
+        one = cs_train.build_trainer(cs_train.parse_args(
+            small + ["--device", DEV, "--ckpt-dir", str(work / "one")]))
+        with contextlib.redirect_stdout(io.StringIO()):
+            cs_train.train_loop(one, cs_train.make_loader(one))
+        want_params = {n: p.detach().cpu() for n, p in one.state.model.named_parameters()}
+        want_losses = list(one.losses)
+        del one
+        torch.cuda.empty_cache()
+        ranks = run_local_ranks(tp_small_rank, 4, (
+            small + ["--device", DEV, "--backend", "gloo", "--tp", "2", "--fsdp", "--ckpt-dir",
+                     str(work / "ranks")],), timeout=600)
+        back = cs_train.build_trainer(cs_train.parse_args(
+            small + ["--device", DEV, "--ckpt-dir", str(work / "ranks")]))
+        with contextlib.redirect_stdout(io.StringIO()):
+            back.resume()
+        mine = leaf_hashes(train_state_tree(back.state))
+        theirs = ranks[0]["hashes"]
+        differ = sorted(k for k in set(mine) | set(theirs) if mine.get(k) != theirs.get(k))
+        dparam = max(float((p.detach().cpu() - want_params[n]).abs().max())
+                     for n, p in back.state.model.named_parameters())
+        rel = max(abs(a - w) / abs(w) for r in ranks for a, w in zip(r["losses"], want_losses))
+        ok_b = (rel <= 2e-4 and dparam < 2e-4 and all(not r["mismatches"] for r in ranks)
+                and all(len(r["losses"]) == len(want_losses) for r in ranks))
+        ok_d = not differ and back.state.step == len(want_losses)
+        log(f"# tp small (cs_train {' '.join(small)}) tp 2 x dp 2 fsdp on 4 ranks of {DEV} "
+            f"(gloo) vs one process: losses {ranks[0]['losses']} vs {want_losses} (max rel "
+            f"{rel:.2e}, tol 2e-4), max |dparam| {dparam:.2e} (tol 2e-4), weights over model "
+            f"{ranks[0]['n_model']}, over data {ranks[0]['n_data']}, state MB a rank "
+            f"{[round(r['state_mb'], 2) for r in ranks]}, replica mismatches "
+            f"{sum(len(r['mismatches']) for r in ranks)}, launches a rank {ranks[0]['counts']} "
+            f"ok={ok_b}")
+        log(f"# tp restore: the --tp 2 --fsdp save (gather_to_host, rank 0 writes) restored in "
+            f"one process: {len(mine)} leaves, {len(differ)} not bit for bit {differ[:4]} "
+            f"ok={ok_d}")
+        if not ok_b:
+            failures.append("tp small: 4 ranks against one process")
+        if not ok_d:
+            failures.append(f"tp restore: leaves differ {differ[:4]}")
+        for r in ranks:
+            for k in launches:
+                launches[k] += r["counts"].get(k, 0)
+        summary["small"] = dict(losses=[r["losses"] for r in ranks], want=want_losses,
+                                max_rel=rel, dparam=dparam, restore_differ=differ,
+                                counts=[r["counts"] for r in ranks],
+                                seconds=time.perf_counter() - t0)
+        del back
+        torch.cuda.empty_cache()
+
+        # (c) the full-width CS model: 2 ranks, the configurations in turn
+        summary["full"] = {}
+        t0 = time.perf_counter()
+        per_rank = run_local_ranks(tp_cs_rank, 2, ([(n, f + list(full_flags))
+                                                    for n, f in TP_CONFIGS], steps, DEV),
+                                   timeout=900)
+        summary["full_wall_s"] = time.perf_counter() - t0
+        for name, _ in TP_CONFIGS:
+            ranks = [res[name] for res in per_rank]
+            for res in ranks:
+                r, sp = res["rank"], res["grid"]["sp"]
+                mb, nv, nf, nc = res["micro"], res["n_video"], res["n_frame"], res["n_convs"]
+                want_c = dict(conv_fwd=mb * nc, conv_bwd=mb * nc,
+                              dart_fwd=0 if sp > 1 else mb * nv, dart_bwd=0 if sp > 1 else mb * nv,
+                              full_fwd=mb * nf, full_bwd=mb * nf,
+                              dart_sp_fwd=mb * nv if sp > 1 else 0,
+                              dart_sp_bwd=mb * nv if sp > 1 else 0,
+                              causal_sp_fwd=0, causal_sp_bwd=0)
+                for row in res["rows"]:
+                    ok = (row["counts"] == want_c and np.isfinite(row["loss"])
+                          and row["grads_finite"])
+                    log(f"# tp {name} rank {r} step {row['step']} dart loss={row['loss']:.4f} "
+                        f"step_ms={row['ms']:.1f} launches {row['counts']} ok={ok}")
+                    if not ok:
+                        failures.append(f"tp {name} rank {r} step {row['step']}: launches "
+                                        f"{row['counts']} (want {want_c}) or not finite")
+                    for k in launches:
+                        launches[k] += row["counts"].get(k, 0)
+                later = [x["ms"] for x in res["rows"][1:]] or [res["rows"][0]["ms"]]
+                last = res["rows"][-1]
+                in_coll = sum(ms for _, ms in last["collectives"].values())
+                log(f"# tp {name} rank {r} step {last['step']}: {in_coll:.1f} of "
+                    f"{last['ms']:.1f} ms inside the collectives (host staging and waits "
+                    f"included): " + ", ".join(f"{k} {n} calls {ms:.1f} ms" for k, (n, ms)
+                                               in sorted(last["collectives"].items())))
+                peak = "n/a" if res["peak_mb"] is None else f"{res['peak_mb']:.1f}"
+                log(f"# tp {name} rank {r}: grid {res['grid']}, local batch "
+                    f"{res['local_batch']} in {mb} microbatches, {res['n_params'] / 1e6:.1f}M "
+                    f"params; DART step {sum(later) / len(later):.1f} ms (steps 2-{steps}; "
+                    f"{res['batch'] * 1e3 * len(later) / sum(later):.3f} samples/s of the global "
+                    f"batch {res['batch']}), peak_mb={peak}, params+Adam+EMA "
+                    f"{res['state_mb']:.1f} MB ({res['state_mb'] / ONE_PROCESS_STATE_MB:.3f} of "
+                    f"one process's {ONE_PROCESS_STATE_MB} MB), replica mismatches "
+                    f"{len(res['mismatches'])}; {res['seconds']:.1f} s with the build")
+                if res["mismatches"]:
+                    failures.append(f"tp {name} rank {r}: ranks disagree {res['mismatches'][:3]}")
+            if len({tuple(x["loss"] for x in res["rows"]) for res in ranks}) != 1:
+                failures.append(f"tp {name}: the ranks report different global losses")
+            summary["full"][name] = ranks
+        log(f"# tp full width: 2 ranks, {summary['full_wall_s']:.1f} s wall from spawn to the "
+            f"last result")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    summary["seconds"] = time.perf_counter() - t_phase
+    log(f"# tp phase: {summary['seconds']:.1f} s, launches {launches}")
+    return failures, summary, launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None, help="also write the detailed results here")
@@ -3307,6 +3673,16 @@ def main(argv=None):
     train_flash = tuple(t + ref_launches[k] for t, k in
                         zip(train_flash, ("dart_fwd", "dart_bwd", "full_fwd", "full_bwd")))
 
+    # phase 14: tensor parallelism, FSDP and the replica axis: cs_train
+    # --tp / --fsdp and CS --sp, the ranks sharing this card
+    torch.cuda.empty_cache()
+    tp_failures, tp_summary, tp_launches = tp_phase(fc, cs_cfg)
+    failures += tp_failures
+    launches_cf += tp_launches["conv_fwd"]
+    launches_cb += tp_launches["conv_bwd"]
+    train_flash = tuple(t + tp_launches[k] for t, k in
+                        zip(train_flash, ("dart_fwd", "dart_bwd", "full_fwd", "full_bwd")))
+
     # the kernels line: main-path shapes in the main path's dtype (bf16)
     main_attn = next(r for r in attn_rows
                      if r["dtype"] == "bfloat16" and r["case"] == "ring off=0 t=8 F=64")
@@ -3370,7 +3746,8 @@ def main(argv=None):
             name=f"dart_attention_sp_{which}", route="cuda",
             source=f"{PKG}/csrc/flash_attention_{which}.cu",
             replaces="autoregressive_diffusion_tpu/ops/flash_attention.py:326",
-            launches=sum(c[f"dart_sp_{which}"] for res in sp_ranks for c in res["gym"]["counts"]),
+            launches=(sum(c[f"dart_sp_{which}"] for res in sp_ranks for c in res["gym"]["counts"])
+                      + tp_launches[f"dart_sp_{which}"]),
             max_abs_err=max(errs), ms=per_step(f"{which}_ms"),
             plain_ms=per_step(f"plain_{which}_ms"), bound_ms=per_step(f"bound_{which}_ms"),
             bound_by=rs[0][f"bound_{which}_by"], library_ms=per_step(f"library_{which}_ms"),
@@ -3379,7 +3756,8 @@ def main(argv=None):
         f"{n_video_layers} video layers of a DART step (sp=2, bf16, q (8, 4, 512, 64) against "
         f"k/v (8, 4, 1024, 64), mean of the two ranks; ms and library_ms are device times; "
         f"library: F.scaled_dot_product_attention on the same rows and mask); launches: both "
-        f"ranks' four steps. The same entry points "
+        f"ranks' four steps in phase 8 and both ranks' steps of CS --sp 2 in phase 14. The "
+        f"same entry points "
         f"with the causal mask (flash_attention.py:336) were checked above")
     for k in kernels:
         if k["launches"] == 0:
@@ -3390,8 +3768,9 @@ def main(argv=None):
         "resume and replay steps and the served export), phase 11 (the CS path: its "
         "training steps, the card-against-CPU check, the probe, the rollout and the timed "
         "denoiser calls), phase 12 (the rollout that serves the trained VAE; VAE training "
-        "launches no port kernel) and phase 13 (the reference fixtures, the dropout and remat "
-        "steps, the drift rollout)")
+        "launches no port kernel), phase 13 (the reference fixtures, the dropout and remat "
+        "steps, the drift rollout) and phase 14 (every rank's steps of cs_train --tp 2 --fsdp "
+        "at 32 channels and of the full-width CS model under --tp 2, --fsdp and --sp 2)")
     log("# decode_block ms/plain_ms/bound_ms are sums over the 17 Blocks of one denoiser "
         "call; prefill_attention's are at the first prefill (t_new=8, f_total=64); the "
         "ms and library_ms of both are device times (library: F.scaled_dot_product_attention "
@@ -3420,7 +3799,7 @@ def main(argv=None):
                                     **{k: v for k, v in r["gym"].items()})
                                for r in sp_ranks],
                       gym=gym_summary, cs=cs_summary, cs_kernels=cs_kernels,
-                      vae_train=vae_summary, ref_drift=ref_summary)
+                      vae_train=vae_summary, ref_drift=ref_summary, tp=tp_summary)
         Path(args.out).write_text(json.dumps(detail, indent=1))
 
     log(f"# total {time.perf_counter() - t_start:.1f} s")

@@ -300,10 +300,14 @@ def test_cs_train_over_two_ranks_equals_one_process(tmp_path, data):
 
 
 def test_cs_entry_points_refuse_what_is_not_ported(monkeypatch):
-    with pytest.raises(SystemExit):
-        cs_train.parse_args(["--tp", "2"])
-    with pytest.raises(SystemExit):
-        cs_train.parse_args(["--fsdp"])
+    # --tp and --fsdp are ported (tests/test_torch_tp_fsdp.py): they parse,
+    # and a grid that does not divide the world of ranks is refused
+    args = cs_train.parse_args(["--tp", "2", "--fsdp", "--device", "cpu", "--backend", "gloo",
+                                "--model-channels", "16"])
+    assert args.tp == 2 and args.fsdp
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(ValueError, match="does not divide the world of 1 ranks"):
+        cs_train.build_trainer(args)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cs_train.build_trainer(cs_train.parse_args(["--model-channels", "16"]))

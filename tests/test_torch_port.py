@@ -40,6 +40,7 @@ def test_import_leaves_jax_out():
             "import autoregressive_diffusion_tpu_torch.parallel.collectives\n"
             "import autoregressive_diffusion_tpu_torch.parallel.launch\n"
             "import autoregressive_diffusion_tpu_torch.parallel.mesh\n"
+            "import autoregressive_diffusion_tpu_torch.parallel.dryrun\n"
             "import autoregressive_diffusion_tpu_torch.data\n"
             "import autoregressive_diffusion_tpu_torch.data.native\n"
             "import autoregressive_diffusion_tpu_torch.data.gym_data\n"
@@ -145,6 +146,7 @@ def test_every_port_module_is_on_the_isolation_list():
                  "utils/checkpoint.py", "utils/bridge.py", "models/vae.py",
                  "decode_video.py", "parallel/__init__.py",
                  "parallel/collectives.py", "parallel/launch.py", "parallel/mesh.py",
+                 "parallel/dryrun.py",
                  "data/__init__.py", "data/native.py", "data/gym_data.py", "data/replay.py",
                  "gym_train.py", "export_ema.py", "data/mds.py", "data/cs_data.py",
                  "build_cs_dataset.py", "compute_latent_stats.py", "cs_train.py",
