@@ -15,7 +15,12 @@ Counterpart of autoregressive_diffusion_tpu/models/attention.py:
     sharing RoPE positions; under a sequence-parallel context
     (ops/flash_attention.set_sp_context) each seq rank's local concat
     attends the K/V of all ranks (dart_attention_sp), at the global RoPE
-    positions of its frames;
+    positions of its frames; when the context's tp > 1 divides the heads
+    (sp_head_shards, the JAX package's head_axis='model') each model rank
+    runs its own num_heads / tp heads, [r m/tp, (r+1) m/tp): it keeps those
+    heads' q, k, v of the gathered qkv, whose backward reduce-scatters over
+    the model group (MPConv partial_use), and gathers the heads' outputs
+    over the model group before attn_proj;
   * just_2d and FrameAttention are unmasked flash attention within each
     frame (ops/flash_attention.full_attention), frames folded into the
     batch.
@@ -39,10 +44,11 @@ from torch import nn
 
 from ..ops.flash_attention import (causal_frame_attention, dart_attention, dart_attention_sp,
                                    full_attention, prefill_cache_attention, sp_context,
-                                   sp_flash_supported)
+                                   sp_flash_supported, sp_head_shards)
 from ..ops.masks import ring_slot_position
 from ..ops.numerics import mp_sum, normalize
 from ..ops.rope import apply_rope, rope_qk, rope_tables
+from ..parallel.collectives import gather_model
 from .layers import MPConv
 
 
@@ -96,9 +102,12 @@ def decode_tables(kbuf: torch.Tensor, vbuf: torch.Tensor, new_frames: int,
             "bias": bias[:, None].expand(f, hw).reshape(f * hw)}
 
 
-def _split_qkv(y: torch.Tensor, num_heads: int):
+def _split_qkv(y: torch.Tensor, num_heads: int, heads: slice = slice(None)):
+    """q, k, v (b, m, t, hw, c) of the heads `heads`, contiguous (the
+    kernels refuse strided inputs); under the (s m c) split a set of heads
+    is three strided column ranges of y, so the slice follows the rearrange."""
     y = einops.rearrange(y, "b t h w (s m c) -> s b m t (h w) c", s=3, m=num_heads)
-    q, k, v = normalize(y, dim=-1).contiguous()  # per-head pixel norm
+    q, k, v = normalize(y[:, :, heads], dim=-1).contiguous()  # per-head pixel norm
     return q, k, v
 
 
@@ -128,7 +137,15 @@ class VideoAttention(nn.Module):
                 frames: int = 0, just_2d: bool = False, mode: str = "eval"):
         b, t, h, w = x.shape[:4]
         hw = h * w
-        q, k, v = _split_qkv(self.attn_qkv(x), self.num_heads)
+        shards = sp_head_shards(self.num_heads) if mode == "train" and not just_2d else 1
+        if shards == 1:
+            q, k, v = _split_qkv(self.attn_qkv(x), self.num_heads)
+        else:
+            mesh = sp_context()
+            m_l = self.num_heads // shards
+            q, k, v = _split_qkv(self.attn_qkv(x, partial_use=mesh.model_group),
+                                 self.num_heads, slice(mesh.model_rank * m_l,
+                                                       (mesh.model_rank + 1) * m_l))
         if just_2d:
             o = _per_frame_attention(q, k, v)
         elif mode == "train":
@@ -148,6 +165,13 @@ class VideoAttention(nn.Module):
                 cache = {"k": kbuf, "v": vbuf,
                          **decode_tables(kbuf, vbuf, frames + t, k.dtype)}
         y = einops.rearrange(o, "b m t (h w) c -> b t h w (m c)", h=h, w=w)
+        if shards > 1:
+            # every model rank's heads, rank-major = the (m c) order. The
+            # backward takes this rank's heads' slice, which is right because
+            # the gradient arriving here is the same on every model rank:
+            # attn_proj's input passes copy_to_model when its weight is split,
+            # and everything after it is replicated when it is not.
+            y = gather_model(y, sp_context().model_group)
         y = self.attn_proj(y)
         return mp_sum(x, y, t=self.attn_balance), cache
 
@@ -155,7 +179,7 @@ class VideoAttention(nn.Module):
         """DART attention over the concat of t = 2 t_half frames, at clip
         positions frames + [0, t_half): frames = 0, or this seq rank's
         offset when the clip's T = sp * t_half frames are split over ranks."""
-        m, t_half = self.num_heads, t // 2
+        m, t_half = q.shape[1], t // 2  # this model rank's heads
         sp = sp_flash_supported(t_half)
         n_frames = t_half * (sp_context().sp if sp else 1)
         pos = frames + torch.arange(t_half, device=q.device)

@@ -22,7 +22,8 @@ then runs on the gathered weight. A weight whose output channels are split
 over the model group computes this rank's output channels, with every
 replicated input (x, the gain, the conv's cvec and gates, whose gradients
 sum over the output channels) passed through copy_to_model, and gathers
-the channels of all model ranks after (gather_model). mp_weight's
+the channels of all model ranks after (gather_model; gather_model_partial
+for head-sharded attention's qkv, models/attention.py). mp_weight's
 per-output-channel norm is local to the rank's channels; its fan-in is the
 whole input. A sharded module trains only: the eval and decode paths
 serve unsharded weights (parallel.gather_to_host).
@@ -39,7 +40,7 @@ from ..ops.flash_attention import sp_context
 from ..ops.fused_conv import fused_gated_conv
 from ..ops.numerics import mp_weight
 from ..parallel.collectives import (HALO, copy_to_model, exchange_halo, fsdp_gather,
-                                   gather_model)
+                                   gather_model, gather_model_partial)
 
 
 def mp_sum_gated(a: torch.Tensor, b: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
@@ -113,7 +114,13 @@ class MPConv(nn.Module):
             return _dequantized(self, dtype, gain)
         return mp_weight(_gathered(self), gain).to(dtype)
 
-    def forward(self, x: torch.Tensor, gain=1.0) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, gain=1.0, partial_use=None) -> torch.Tensor:
+        """partial_use: the model group, when each of its ranks uses only a
+        part of the output (head-sharded attention). The output's gradient
+        then differs between those ranks, so it is summed over the group
+        before it reaches the weight and x: by the reduce-scatter of
+        gather_model_partial when the weight's output channels are split,
+        else by copy_to_model on the replicated output."""
         group = _model_group(self)
         if group is not None:
             x = copy_to_model(x, group)
@@ -126,7 +133,10 @@ class MPConv(nn.Module):
             y = x @ w[0, 0]
         else:
             y = conv2d_nhwc(x, w)
-        return _gather(y, group)
+        if partial_use is None:
+            return _gather(y, group)
+        return (copy_to_model(y, partial_use) if group is None
+                else gather_model_partial(y, group))
 
 
 class Gating(nn.Module):

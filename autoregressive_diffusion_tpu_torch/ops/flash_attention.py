@@ -32,7 +32,9 @@ then the same frames noisy) and the gathered K/V come rank-major; the
 kernels map every frame index to its global frame (ops/masks.shard_frame)
 before the mask rule, so nothing is permuted. The context that routes
 train-mode attention here is set_sp_context / sp_context /
-sp_flash_supported, as in the JAX package.
+sp_flash_supported, as in the JAX package; under tensor parallelism too,
+sp_head_shards splits the heads over the model ranks as the JAX package's
+head_axis does, and each rank gathers the K/V of its own heads only.
 
 All take q pre-scaled by 1/sqrt(d) and cast to the input type (the public
 functions scale it, outside the Function, so autograd carries the scale
@@ -460,6 +462,20 @@ def set_sp_context(mesh):
 
 def sp_context():
     return _SP_CTX
+
+
+def sp_head_shards(num_heads: int) -> int:
+    """The model ranks that train-mode video attention's heads split over:
+    the SP context's tp when it has sp > 1 and tp > 1 and tp divides
+    num_heads, else 1 (every model rank runs every head). It mirrors the
+    JAX package's gate (sp_flash_supported :383-387): under SP its splash
+    kernel keeps the heads on 'model' when they split evenly and otherwise
+    runs with head_axis None. Without SP the JAX splash call is not
+    partitioned and sees every head on every model rank, as here."""
+    mesh = _SP_CTX
+    if mesh is None or mesh.sp <= 1 or mesh.tp <= 1 or num_heads % mesh.tp:
+        return 1
+    return mesh.tp
 
 
 def sp_flash_supported(n_frames_local: int) -> bool:

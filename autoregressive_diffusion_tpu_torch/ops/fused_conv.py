@@ -386,3 +386,36 @@ def fused_gated_conv(x, w2, w3, cvec, gates, silu_in: bool, with_ctx: bool):
     if not with_ctx:
         w3 = gates = None
     return _FusedGatedConv.apply(x, w2, w3, cvec, gates, bool(silu_in), bool(with_ctx))
+
+
+def conv_calls(cfg):
+    """[(module name, (H, C, Co, silu_in, has_cvec))] of every causal conv
+    of the model (a models.UNetConfig), in execution order: the shapes the
+    train-mode fused conv runs at."""
+    out = []
+    for side, name, spec in cfg.block_layout():
+        r, cin, co = spec["res"], spec["cin"], spec["cout"]
+        full = name if side == "out" else f"{side}_{name}"
+        if spec["kind"] == "conv":
+            out.append((full, (r, cin, co, False, False)))
+        else:
+            c0 = co if spec["flavor"] == "enc" else cin
+            out.append((f"{full}.conv_res0", (r, c0, co, True, False)))
+            out.append((f"{full}.conv_res1", (r, co, co, True, True)))
+    return out
+
+
+def conv_inputs(b, f, h, w, c, co, has_cv, with_ctx, dtype, device, seed):
+    """([x, w2, w3, cvec, gates], the output gradient) of one fused conv
+    call, seeded normal draws (the weights normalized as the model's are)."""
+    from .numerics import mp_weight
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def rn(*s):
+        return torch.randn(s, generator=g, device=device)
+
+    args = [rn(b, f, h, w, c).to(dtype), mp_weight(rn(3, 3, c, co)).to(dtype),
+            mp_weight(rn(2, 3, 3, c, co)).to(dtype) if with_ctx else None,
+            (1.0 + 0.3 * rn(b, f, c)).to(dtype) if has_cv else None,
+            (0.05 + 0.9 * torch.rand((b, f), generator=g, device=device)) if with_ctx else None]
+    return args, rn(b, f, h, w, co).to(dtype)

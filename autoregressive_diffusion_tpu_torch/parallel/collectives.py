@@ -26,6 +26,10 @@ three more, which XLA inserts around the JAX package's sharded matmuls:
     output channels only;
   * gather_model: this rank's output channels -> all of them, model-rank
     major on the last axis; the backward takes this rank's slice;
+  * gather_model_partial: the same forward, for an output that each model
+    rank uses only in part (head-sharded attention keeps its own heads' q,
+    k and v); the backward reduce-scatters the gradient over the model
+    group;
   * fsdp_gather: a weight's shard -> the whole weight along its FSDP axis;
     the backward reduce-scatters (sums) the gradient back to the shards.
 
@@ -228,6 +232,18 @@ def gather_model(y: torch.Tensor, group) -> torch.Tensor:
     if dist.get_world_size(group) == 1:
         return y
     return _GatherModel.apply(y, group)
+
+
+def gather_model_partial(y: torch.Tensor, group) -> torch.Tensor:
+    """gather_model for an output that each rank of `group` uses only in
+    part: head-sharded attention (models/attention.py) keeps this rank's
+    heads' q, k and v of the gathered qkv. The gradient of the gathered
+    tensor then differs between the ranks, each holding only the part it
+    used, so the backward sums it over `group` and takes this rank's chunk:
+    a reduce-scatter, fsdp_gather's semantics on the last axis."""
+    if dist.get_world_size(group) == 1:
+        return y
+    return _FSDPGather.apply(y, y.dim() - 1, group)
 
 
 class _FSDPGather(torch.autograd.Function):

@@ -72,7 +72,9 @@ Phases, each of which fails the run with a non-zero exit:
   8. sequence parallelism (row 8): every seq rank's forward and backward
      kernel call (the flash kernels' SP entry points) against its plain
      version at the gym's video-attention shape, DART and frame-causal,
-     sp = 2 and 4, fp32 and bf16, and the ranks' stacked o and summed dk, dv
+     sp = 2 and 4, and at the CS model's under --sp 2 --tp 2 (phase 15's
+     path: b=2, 4 of the 8 heads, 4x4 tokens a frame, DART over T=16,
+     sp = 2), fp32 and bf16, and the ranks' stacked o and summed dk, dv
      against the one-rank kernels, with times of each call, its plain
      version and F.scaled_dot_product_attention on the same rows and mask;
      then two ranks spawned on this card under gloo (the main path of the
@@ -170,7 +172,7 @@ Phases, each of which fails the run with a non-zero exit:
      a loss + backward held (remat: every Block's convs and attention
      forward again), step ms and peak MB of 3 steps each; (c)
      rollout_drift on the r3 weights and the trained VAE over the committed
-     episode 0 for 8 frames: the series finite and in drift.npz, 17 decode
+     episode 0 for 4 frames: the series finite and in drift.npz, 17 decode
      Blocks a denoiser call, 6 prefill launches a prefill. Its launches join
      the kernels line.
  14. tensor parallelism, FSDP and the replica axis (parallel/mesh.py), the
@@ -183,14 +185,28 @@ Phases, each of which fails the run with a non-zero exit:
      one process on the card: losses within rtol 2e-4, parameters within
      2e-4, the replicas consistent; (c) the full-width 310M CS model (bf16,
      batch 8 in microbatches of 2, T=16) under --tp 2, --fsdp (2 data
-     ranks) and --sp 2 in turn on 2 ranks, 2 DART steps each (the first
-     warms up, the second is the one timed): every rank's step ms,
+     ranks) and --sp 2 in turn on 2 ranks, one DART step each (its time
+     includes the warm-up): every rank's step ms,
      peak MB, the MB of its parameters, AdamW moments and EMA copies
      against one process's 5911.6 MB, and its conv and flash launches
      counted from 0 before each step, held to the model's convs and
      attention layers; (d) (b)'s save, gathered by every rank and written
      by rank 0, restored in one process: every leaf bit for bit. Its
      launches join the kernels line.
+ 15. head-sharded attention under SP x TP and the port's tools: (a)
+     cs_train at 32 channels, fp32, under --sp 2 --tp 2 on 4 ranks sharing
+     the card (gloo) for 3 steps (just_2d, then 2 DART) against the same
+     steps in one process on the card: each step's loss within 1e-6
+     relative and every parameter within 1e-5 after each step, every
+     rank's row-8 calls on 1 of the 2 video heads (num_heads / tp), the
+     replicas consistent; (b) the full-width 310M CS model under --sp 2
+     --tp 2 on 4 ranks, 2 DART steps: launches, the SP heads (4 of 8) and
+     finite losses held as in phase 14, with step ms, the ms inside the
+     collectives by kind, the K/V gather's bytes, peak MB and state MB a
+     rank; (c) decode_budget, kernel_bench and profile_train at their
+     defaults in this process (decode_budget's timed rollout cut to
+     --frames 2), their lines logged as "# tool".
+     The launches of (a) and (b) join the kernels line.
 Then it prints the `kernels` JSON line, the nvidia-smi line and, last,
 {"ok": true, "device": {...}}. It exits non-zero, printing no result, when
 no CUDA device is present or the port's package is not beside it.
@@ -210,8 +226,6 @@ ROOT = Path(__file__).resolve().parent
 PKG = "autoregressive_diffusion_tpu_torch"
 DEV = "cuda"
 
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # H100 SXM, dense
-PEAK_BYTES_PER_S = 3.35e12
 TOL_FP32_ATTN = 1e-4   # max |diff|: the same fp32 arithmetic in another order
 TOL_FP32_BLOCK = 1e-3  # max |diff|: fp32 sums of up to 27*256 products
 TOL_BF16 = 1e-2        # std(diff)/std(ref): bf16 rounding of outputs and t0/t1
@@ -243,32 +257,6 @@ def time_ms(fn, iters=30, warmup=3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
-
-
-def device_ms(fn, iters=30, warmup=3) -> float:
-    """Device time of a call: the timed calls are queued behind a sleeping
-    kernel, so the host's cost of launching them (Python, ctypes, tensor
-    maps) overlaps the sleep and the events see the kernels back to back.
-    The sleep doubles until it outlasts the queueing. fn must not
-    synchronise (no host-device copies)."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    cycles = 5_000_000
-    for _ in range(8):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(cycles)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        queued = not start.query()  # the card was still asleep when the last call was queued
-        torch.cuda.synchronize()
-        if queued:
-            return start.elapsed_time(end) / iters
-        cycles *= 2
-    raise RuntimeError("device_ms: the sleep never outlasted the queueing")
 
 
 def ptxas_report(text):
@@ -324,12 +312,6 @@ def sass_counts(lib, part="_tc"):
     return dict(zip(demangle(list(found)), found.values()))
 
 
-def bound(flops, nbytes, dtype):
-    t_ops = flops / PEAK_FLOPS[dtype]
-    t_bytes = nbytes / PEAK_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
-
-
 def compare(got, want, dtype, fp32_tol):
     """(max |diff|, error, tolerance, ok) for one output: fp32 is held to
     max |diff| <= fp32_tol, bf16 to std(diff)/std(ref) <= TOL_BF16."""
@@ -359,6 +341,8 @@ def zero_flash_counts(fa):
 # phase 2: prefill attention
 
 def attention_phase(fa, masks, F):
+    from autoregressive_diffusion_tpu_torch.utils.roofline import bound
+    from autoregressive_diffusion_tpu_torch.utils.profiling import device_ms
     dev = torch.device(DEV)
     heads, d, hw = 4, 64, 64
     cases = [("fresh causal t=8", 8, 8, 0), ("ring off=0 t=8 F=64", 8, 64, 0),
@@ -428,24 +412,6 @@ def attention_calls(cfg, b, t, just_2d):
     return out
 
 
-def flash_cost(kind, b, heads, n_frames, hw, d, dtype, masks):
-    """((forward operations, bytes), (backward operations, bytes)) of one
-    call: a multiply-add is two operations, over the (query, key) pairs the
-    mask lets through; forward reads q, k, v and writes o and lse, backward
-    reads q, k, v, o, dO and lse and writes dq, dk, dv."""
-    if kind == "dart":
-        s = 2 * n_frames * hw
-        pairs = int(masks.train_frame_mask(n_frames).sum()) * hw * hw
-    else:
-        s = hw
-        pairs = s * s
-    bh = b * heads
-    item = torch.tensor([], dtype=dtype).element_size()
-    mat = bh * s * d * item
-    return ((4 * d * pairs * bh, 4 * mat + 4 * bh * s),
-            (10 * d * pairs * bh, 8 * mat + 4 * bh * s))
-
-
 def flash_tol(want, s):
     """fp32: the same products and exponentials summed in another order, a
     random walk of rounding errors over a sum of up to S terms, each step up
@@ -471,6 +437,8 @@ def flash_phase(fa, masks, F, cfg, b=8, t=8, label="gym", odd=True):
     of `cfg`'s DART and just_2d steps (batch b, T=t; keys labelled
     `label`), its rollout's frame-attention shapes ("serve") and, with
     `odd`, the odd shapes."""
+    from autoregressive_diffusion_tpu_torch.utils.roofline import bound, flash_cost
+    from autoregressive_diffusion_tpu_torch.utils.profiling import device_ms
     dev = torch.device(DEV)
     step = sorted(set(attention_calls(cfg, b, t, False) + attention_calls(cfg, b, t, True)))
     cases = ([(label, c) for c in step] + [("serve", c) for c in serving_calls(cfg)]
@@ -536,7 +504,7 @@ def flash_phase(fa, masks, F, cfg, b=8, t=8, label="gym", odd=True):
                               10, 1)
             plain_b = time_ms(lambda: fa.flash_attention_bwd_plain(qs, k, v, o, lse, do, kind,
                                                                    n_frames, hw), 10, 1)
-            (ff, fb), (bf, bb_) = flash_cost(kind, bb, heads, n_frames, hw, d, dtype, masks)
+            (ff, fb), (bf, bb_) = flash_cost(kind, bb, heads, n_frames, hw, d, dtype)
             bound_f, by_f = bound(ff, fb, dtype)
             bound_b, by_b = bound(bf, bb_, dtype)
             key = (label, shape, dname)
@@ -596,22 +564,9 @@ def block_inputs(shape, dtype, with_ctx, seed):
     return args, dict(flavor=flavor, res_t=0.3, clip=256.0, with_ctx=with_ctx)
 
 
-def block_cost(shape, dtype, with_ctx=True):
-    """(operations, bytes) of one fused Block step: both convolutions' and
-    the skip's multiply-adds as two operations each; each input read once,
-    each output written once."""
-    h, cin, c0, co, _, has_skip = shape
-    taps = 27 if with_ctx else 9
-    hw = h * h
-    flops = 2 * hw * (taps * c0 * co + taps * co * co + (cin * co if has_skip else 0))
-    elems = (hw * cin + (2 * hw * (c0 + co) if with_ctx else 0)
-             + taps * (c0 + co) * co + (cin * co if has_skip else 0) + co
-             + hw * (co + c0 + co))
-    item = torch.tensor([], dtype=dtype).element_size()
-    return flops, elems * item + 8
-
-
 def decode_block_phase(fc, cfg):
+    from autoregressive_diffusion_tpu_torch.utils.roofline import bound, block_cost
+    from autoregressive_diffusion_tpu_torch.utils.profiling import device_ms
     order = ("x", "a0", "a1", "wsk", "w20", "w30", "w21", "w31", "cv", "gates")
     shapes = decode_block_shapes(cfg)
     unique = sorted(set(s for _, s in shapes), key=lambda s: (-s[0], s[1], s[3]))
@@ -950,87 +905,6 @@ def trained_phase(rollout, fa, fc, cfg, shapes, init_cache):
 # ---------------------------------------------------------------------------
 # phase 6: the train-mode fused gated conv, forward and backward
 
-def conv_calls(cfg):
-    """[(module name, (H, C, Co, silu_in, has_cvec))] of every causal conv
-    of the model, in execution order."""
-    out = []
-    for side, name, spec in cfg.block_layout():
-        r, cin, co = spec["res"], spec["cin"], spec["cout"]
-        full = name if side == "out" else f"{side}_{name}"
-        if spec["kind"] == "conv":
-            out.append((full, (r, cin, co, False, False)))
-        else:
-            c0 = co if spec["flavor"] == "enc" else cin
-            out.append((f"{full}.conv_res0", (r, c0, co, True, False)))
-            out.append((f"{full}.conv_res1", (r, co, co, True, True)))
-    return out
-
-
-def conv_inputs(b, f, h, w, c, co, has_cv, with_ctx, dtype, seed):
-    from autoregressive_diffusion_tpu_torch.ops.numerics import mp_weight
-    dev = torch.device(DEV)
-    g = torch.Generator(device=dev).manual_seed(seed)
-
-    def rn(*s):
-        return torch.randn(s, generator=g, device=dev)
-
-    args = [rn(b, f, h, w, c).to(dtype), mp_weight(rn(3, 3, c, co)).to(dtype),
-            mp_weight(rn(2, 3, 3, c, co)).to(dtype) if with_ctx else None,
-            (1.0 + 0.3 * rn(b, f, c)).to(dtype) if has_cv else None,
-            (0.05 + 0.9 * torch.rand((b, f), generator=g, device=dev)) if with_ctx else None]
-    return args, rn(b, f, h, w, co).to(dtype)
-
-
-def unfused_cudnn_conv(x, w2, w3, cvec, gates, silu_in, with_ctx):
-    """The unfused path in the working type: elementwise transform, one
-    F.conv2d per frame, one F.conv2d over the two past clean frames stacked
-    on channels, gate blend. A yardstick only; the port never calls it."""
-    import torch.nn.functional as F
-    b, f, h, w, c = x.shape
-    a = x
-    if cvec is not None:
-        a = a * cvec[:, :, None, None, :]
-    if silu_in:
-        a = F.silu(a) / 0.596
-
-    def conv(inp, wt):
-        y = F.conv2d(inp.reshape((-1,) + tuple(inp.shape[2:])).permute(0, 3, 1, 2),
-                     wt.permute(3, 2, 0, 1), padding=1).permute(0, 2, 3, 1)
-        return y.reshape(tuple(inp.shape[:2]) + tuple(y.shape[1:]))
-
-    y2d = conv(a, w2)
-    if not with_ctx:
-        return y2d
-    t = f // 2
-    hist = torch.cat([torch.ones_like(a[:, :2]), a[:, :t - 1]], dim=1)
-    xs = torch.cat([hist[:, :t], hist[:, 1:t + 1]], dim=-1)
-    ctx = conv(xs, w3.permute(1, 2, 0, 3, 4).reshape(3, 3, 2 * c, -1))
-    ctx = torch.cat([ctx, ctx], dim=1)
-    g = gates.to(x.dtype)[:, :, None, None, None]
-    return (y2d + (ctx - y2d) * g) * ((1 - g) ** 2 + g ** 2) ** -0.5
-
-
-def conv_cost(b, f, h, w, c, co, has_cv, with_ctx, dtype):
-    """((forward operations, bytes), (backward operations, bytes)): a
-    multiply-add is two operations; each input read once, each output
-    written once (the forward's diff residual included)."""
-    t = f // 2
-    mac = b * h * w * c * co * 9
-    item = torch.tensor([], dtype=dtype).element_size()
-    n_x, n_o = b * f * h * w * c, b * f * h * w * co
-    n_w = 9 * c * co * (3 if with_ctx else 1)
-    n_cv = b * f * c if has_cv else 0
-    fwd = 2 * mac * (f + (2 * t if with_ctx else 0))
-    fwd_bytes = item * (n_x + n_w + n_cv + n_o * (2 if with_ctx else 1)) + 4 * b * f
-    # dx: every frame's 2D conv and the clean frames' context taps that
-    # exist; dw: every product of the forward pass, the ones frames' included
-    ctx_taps = max(t - 1, 0) + max(t - 2, 0) if with_ctx else 0
-    bwd = 2 * mac * (f + ctx_taps) + 2 * mac * (f + (2 * t if with_ctx else 0))
-    bwd_bytes = (item * (2 * n_x + 2 * n_w + 2 * n_cv + n_o * (3 if with_ctx else 1))
-                 + 8 * b * f)
-    return (fwd, fwd_bytes), (bwd, bwd_bytes)
-
-
 def conv_phase(fc, cfg, b=8, t=8, label="gym", odd=True, calls=None, timed=True):
     """Kernels against the plain version at every distinct causal conv of
     the model (batch b, T=t; keys labelled `label`; `calls` in place of the
@@ -1040,6 +914,10 @@ def conv_phase(fc, cfg, b=8, t=8, label="gym", odd=True, calls=None, timed=True)
     forward and its backward (autograd over a kept graph), as device time
     (device_ms) and as wall time a call; the plain version's as wall time.
     timed=False: the kernels' device times only."""
+    from autoregressive_diffusion_tpu_torch.kernel_bench import conv_timers
+    from autoregressive_diffusion_tpu_torch.ops.fused_conv import conv_calls, conv_inputs
+    from autoregressive_diffusion_tpu_torch.utils.profiling import device_ms
+    from autoregressive_diffusion_tpu_torch.utils.roofline import bound, conv_cost
     calls = conv_calls(cfg) if calls is None else calls
     shapes = sorted(set(s for _, s in calls), key=lambda s: (-s[0], s[1], s[2], s[3], s[4]))
     cases = [(label, b, 2 * t if ctx else t, h, h, c, co, silu, cv, ctx)
@@ -1052,7 +930,8 @@ def conv_phase(fc, cfg, b=8, t=8, label="gym", odd=True, calls=None, timed=True)
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
         for i, (kind, bb, f, h, w, c, co, silu, has_cv, ctx) in enumerate(cases):
-            args, gout = conv_inputs(bb, f, h, w, c, co, has_cv, ctx, dtype, seed=100 + i)
+            args, gout = conv_inputs(bb, f, h, w, c, co, has_cv, ctx, dtype, torch.device(DEV),
+                                      seed=100 + i)
             sums = dict(out=27 * c if ctx else 9 * c, dx=27 * co if ctx else 9 * co,
                         dw2=bb * f * h * w, dw3=bb * (f // 2) * h * w, dcvec=h * w * 27 * co,
                         dgates=h * w * co)
@@ -1101,28 +980,14 @@ def conv_phase(fc, cfg, b=8, t=8, label="gym", odd=True, calls=None, timed=True)
                 errs[name] = (err, tol)
                 ok = ok and good and bool(torch.isfinite(gg).all())
             iters = 5
-            leaves = [None if a is None else a.detach().requires_grad_(True) for a in args]
-            need = [l for l in leaves if l is not None]
-
-            def fwd_only(fn):
-                with torch.no_grad():
-                    return fn(*args, silu, ctx)
-
-            saved_out, saved_diff = fc._launch_conv_fwd(*args, silu, ctx, True)
-
-            def kernel_bwd():
-                return fc._launch_conv_bwd(*args, gout, saved_diff, saved_out, silu, ctx, True)
-
-            def graph_bwd(out):
-                return lambda: torch.autograd.grad(out, need, gout, retain_graph=True)
-
             (ff, fb), (bf, bb_) = conv_cost(bb, f, h, w, c, co, has_cv, ctx, dtype)
             bound_f, by_f = bound(ff, fb, dtype)
             bound_b, by_b = bound(bf, bb_, dtype)
             key = (kind, bb, f, h, w, c, co, silu, has_cv, ctx, dname)
             if not timed:
-                r = dict(fwd_ms=device_ms(lambda: fwd_only(fc.fused_gated_conv), iters, 1),
-                         bwd_ms=device_ms(kernel_bwd, iters, 1))
+                fns = conv_timers(args, gout, silu, ctx, ("kernel",))
+                r = dict(fwd_ms=device_ms(fns["kernel_fwd"], iters, 1),
+                         bwd_ms=device_ms(fns["kernel_bwd"], iters, 1))
                 results[key] = dict(ok=bool(ok), max_abs_err=worst, errs=errs, repeat=repeat,
                                     **r, bound_fwd_ms=bound_f, bound_bwd_ms=bound_b,
                                     bound_fwd_by=by_f, bound_bwd_by=by_b)
@@ -1133,20 +998,15 @@ def conv_phase(fc, cfg, b=8, t=8, label="gym", odd=True, calls=None, timed=True)
                     f"bwd={r['bwd_ms']:.4f} | bound={bound_f:.4f}+{bound_b:.4f} "
                     f"({by_f}, {by_b})")
                 continue
-            plain_out = fc.fused_gated_conv_plain(*leaves, silu, ctx)
-            unf_out = unfused_cudnn_conv(*leaves, silu, ctx)
-            r = dict(
-                fwd_ms=device_ms(lambda: fwd_only(fc.fused_gated_conv), iters, 1),
-                bwd_ms=device_ms(kernel_bwd, iters, 1),
-                unfused_fwd_ms=device_ms(lambda: fwd_only(unfused_cudnn_conv), iters, 1),
-                unfused_bwd_ms=device_ms(graph_bwd(unf_out), iters, 1),
-                fwd_wall_ms=time_ms(lambda: fwd_only(fc.fused_gated_conv), iters, 1),
-                bwd_wall_ms=time_ms(kernel_bwd, iters, 1),
-                unfused_fwd_wall_ms=time_ms(lambda: fwd_only(unfused_cudnn_conv), iters, 1),
-                unfused_bwd_wall_ms=time_ms(graph_bwd(unf_out), iters, 1),
-                plain_fwd_ms=time_ms(lambda: fwd_only(fc.fused_gated_conv_plain), iters, 1),
-                plain_bwd_ms=time_ms(graph_bwd(plain_out), iters, 1))
-            del plain_out, unf_out
+            fns = conv_timers(args, gout, silu, ctx, ("kernel", "cudnn", "plain"))
+            r = {}
+            for which in ("fwd", "bwd"):
+                r[f"{which}_ms"] = device_ms(fns[f"kernel_{which}"], iters, 1)
+                r[f"unfused_{which}_ms"] = device_ms(fns[f"cudnn_{which}"], iters, 1)
+                r[f"{which}_wall_ms"] = time_ms(fns[f"kernel_{which}"], iters, 1)
+                r[f"unfused_{which}_wall_ms"] = time_ms(fns[f"cudnn_{which}"], iters, 1)
+                r[f"plain_{which}_ms"] = time_ms(fns[f"plain_{which}"], iters, 1)
+            del fns
             results[key] = dict(ok=bool(ok), max_abs_err=worst, errs=errs, repeat=repeat, **r,
                                 bound_fwd_ms=bound_f, bound_bwd_ms=bound_b, bound_fwd_by=by_f,
                                 bound_bwd_by=by_b)
@@ -1168,9 +1028,11 @@ def dw_float64_check(fc):
     channels: sums of 262,144 products). The kernel is held to half the
     bound that the kernel-against-plain comparison allows; the plain
     version's error is logged beside it."""
+    from autoregressive_diffusion_tpu_torch.ops.fused_conv import conv_inputs
     import torch.nn.functional as F
     b, f, h, c, co = 8, 8, 64, 64, 64
-    args, gout = conv_inputs(b, f, h, h, c, co, False, False, torch.float32, seed=7)
+    args, gout = conv_inputs(b, f, h, h, c, co, False, False, torch.float32,
+                             torch.device(DEV), seed=7)
 
     def dw2(fn):
         w2 = args[1].detach().requires_grad_(True)
@@ -1368,34 +1230,23 @@ def gathered_order(masks, kind, n_frames, hw, sp):
     return torch.from_numpy(idx).to(DEV)
 
 
-def sp_cost(fa, kind, b, heads, n_frames, hw, d, sp, rank, dtype):
-    """((forward operations, bytes), (backward operations, bytes)) of one
-    rank's call: a multiply-add is two operations, over the (query, key)
-    pairs the rank's mask lets through; the forward reads its q rows and the
-    gathered k, v and writes o and lse rows, the backward reads q, o, dO,
-    lse rows and k, v and writes dq rows and the partial dk, dv."""
-    s = (2 if kind == "dart" else 1) * n_frames * hw
-    sq = s // sp
-    pairs = int(fa._token_mask_np(kind, n_frames, hw, sq, sp, rank).sum())
-    bh = b * heads
-    item = torch.tensor([], dtype=dtype).element_size()
-    rows, keys = bh * sq * d * item, bh * s * d * item
-    return ((4 * d * pairs * bh, 2 * rows + 2 * keys + 4 * bh * sq),
-            (10 * d * pairs * bh, 4 * rows + 4 * keys + 4 * bh * sq))
-
-
-def sp_kernel_phase(fa, masks, F, b=8, heads=4, hw=64, d=64):
+def sp_kernel_phase(fa, masks, F, b=8, heads=4, hw=64, d=64,
+                    cases=(("dart", 8), ("causal", 16)), sps=(2, 4), label="gym"):
     """Every seq rank's forward and backward kernel calls against their
-    plain versions at the gym's video-attention shape (1024 tokens: DART
-    over T=8, frame-causal over 16 frames), sp = 2 and 4, fp32 and bf16;
-    the ranks' stacked o and dq and summed dk, dv against the one-rank
-    kernels (DART: row 4; causal: the prefill kernel's o, row 5, and the
-    plain backward); times of each rank's call, its plain version and
-    F.scaled_dot_product_attention on the same rows and mask (kernel and
-    SDPA: device times)."""
+    plain versions for each (mask kind, frames) of `cases` and each sp of
+    `sps`, fp32 and bf16 (keys labelled `label`): by default the gym's
+    video-attention shape (1024 tokens: DART over T=8, frame-causal over 16
+    frames) at sp = 2 and 4; the CS model's under --sp 2 --tp 2 is b=2,
+    heads=4 (8 / tp), hw=16, DART over T=16, sp = 2. Also the ranks' stacked
+    o and dq and summed dk, dv against the one-rank kernels (DART: row 4;
+    causal: the prefill kernel's o, row 5, and the plain backward); times of
+    each rank's call, its plain version and F.scaled_dot_product_attention
+    on the same rows and mask (kernel and SDPA: device times)."""
+    from autoregressive_diffusion_tpu_torch.utils.roofline import bound, sp_cost
+    from autoregressive_diffusion_tpu_torch.utils.profiling import device_ms
     dev = torch.device(DEV)
     results = {}
-    for kind, n_frames in (("dart", 8), ("causal", 16)):
+    for kind, n_frames in cases:
         s = (2 if kind == "dart" else 1) * n_frames * hw
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).split(".")[-1]
@@ -1411,7 +1262,7 @@ def sp_kernel_phase(fa, masks, F, b=8, heads=4, hw=64, d=64):
                 o1, lse1 = fa.flash_attention_fwd_plain(qs, k, v, kind, n_frames, hw)
                 g1 = fa.flash_attention_bwd_plain(qs, k, v, o1, lse1, do, kind, n_frames, hw)
                 o_one = fa.prefill_attention(qs, k, v, n_frames, n_frames, 0, hw)
-            for sp in (2, 4):
+            for sp in sps:
                 sq = s // sp
                 idx = gathered_order(masks, kind, n_frames, hw, sp)
                 kg, vg = k[:, :, idx].contiguous(), v[:, :, idx].contiguous()
@@ -1461,7 +1312,7 @@ def sp_kernel_phase(fa, masks, F, b=8, heads=4, hw=64, d=64):
                     with torch.no_grad():
                         lib_f = device_ms(sdpa)
                     lib_fb = device_ms(sdpa_fb)
-                    (ff, fb), (bf, bb) = sp_cost(fa, kind, b, heads, n_frames, hw, d, sp, r, dtype)
+                    (ff, fb), (bf, bb) = sp_cost(kind, b, heads, n_frames, hw, d, sp, r, dtype)
                     bound_f, by_f = bound(ff, fb, dtype)
                     bound_b, by_b = bound(bf, bb, dtype)
                     res = dict(ok=bool(ok), max_abs_err=worst, errs=errs, fwd_ms=ms_f,
@@ -1470,9 +1321,10 @@ def sp_kernel_phase(fa, masks, F, b=8, heads=4, hw=64, d=64):
                                bound_fwd_ms=bound_f, bound_bwd_ms=bound_b, bound_fwd_by=by_f,
                                bound_bwd_by=by_b, fwd_gflop=ff / 1e9, bwd_gflop=bf / 1e9,
                                fwd_mb=fb / 1e6, bwd_mb=bb / 1e6)
-                    results[(kind, dname, sp, r)] = res
+                    results[(label, kind, dname, sp, r)] = res
                     detail = " ".join(f"{n}={e:.2e}/{tl:.1e}" for n, (e, tl) in errs.items())
-                    log(f"# sp-kernel {dname:8s} {kind:6s} sp={sp} rank={r} q=({b},{heads},{sq},"
+                    log(f"# sp-kernel {label} {dname:8s} {kind:6s} sp={sp} rank={r} "
+                        f"q=({b},{heads},{sq},"
                         f"{d}) kv S={s} ok={ok} {detail} | ms fwd={ms_f:.4f} bwd={ms_b:.4f} "
                         f"plain={plain_f:.4f}+{plain_b:.4f} sdpa={lib_f:.4f}+"
                         f"{res['library_bwd_ms']:.4f} bound={bound_f:.5f}+{bound_b:.5f} "
@@ -1490,12 +1342,51 @@ def sp_kernel_phase(fa, masks, F, b=8, heads=4, hw=64, d=64):
                         err, tol = float(diff.std() / want.float().std()), TOL_BF16
                     errs[name] = (err, tol)
                     ok = ok and err <= tol
-                results[(kind, dname, sp, "stack")] = dict(ok=bool(ok), errs=errs)
+                results[(label, kind, dname, sp, "stack")] = dict(ok=bool(ok), errs=errs)
                 detail = " ".join(f"{n}={e:.2e}/{tl:.1e}" for n, (e, tl) in errs.items())
-                log(f"# sp-kernel {dname:8s} {kind:6s} sp={sp} stacked o, dq and summed dk, dv "
+                log(f"# sp-kernel {label} {dname:8s} {kind:6s} sp={sp} stacked o, dq and summed "
+                    f"dk, dv "
                     f"against the one-rank {'kernel' if kind == 'dart' else 'prefill kernel/plain'}"
                     f": ok={ok} {detail}")
     return results
+
+
+def sp_kernel_rows(sp_results, n_video_layers, n_cs_video, launches):
+    """The `kernels` rows of the SP entry points: one rank's calls over the
+    gym's video layers of a DART step (sp=2, bf16, mean of the two ranks)
+    and, as cs_*, over the CS model's of a microbatch under --sp 2 --tp 2;
+    max_abs_err and ok over every DART check of sp_kernel_phase."""
+    rows = []
+    for which in ("fwd", "bwd"):
+        errs = [v["max_abs_err"] for k, v in sp_results.items()
+                if k[1] == "dart" and k[4] != "stack"]
+        row = {}
+        for label, prefix, n_layers in (("gym", "", n_video_layers), ("cs", "cs_", n_cs_video)):
+            rs = [sp_results[(label, "dart", "bfloat16", 2, r)] for r in range(2)]
+            for key in ("", "plain_", "bound_", "library_"):
+                row[f"{prefix}{key}ms"] = n_layers * sum(r[f"{key}{which}_ms"]
+                                                         for r in rs) / len(rs)
+            row[f"{prefix}bound_by"] = rs[0][f"bound_{which}_by"]
+        rows.append(dict(
+            name=f"dart_attention_sp_{which}", route="cuda",
+            source=f"{PKG}/csrc/flash_attention_{which}.cu",
+            replaces="autoregressive_diffusion_tpu/ops/flash_attention.py:326",
+            launches=launches[which], max_abs_err=max(errs), ms=row["ms"],
+            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+            library_ms=row["library_ms"], cs_ms=row["cs_ms"], cs_plain_ms=row["cs_plain_ms"],
+            cs_bound_ms=row["cs_bound_ms"], cs_bound_by=row["cs_bound_by"],
+            cs_library_ms=row["cs_library_ms"], ok=all(v["ok"] for v in sp_results.values())))
+    log(f"# dart_attention_sp ms/plain_ms/bound_ms/library_ms are one rank's sums over the "
+        f"{n_video_layers} video layers of a DART step (sp=2, bf16, q (8, 4, 512, 64) against "
+        f"k/v (8, 4, 1024, 64), mean of the two ranks; ms and library_ms are device times; "
+        f"library: F.scaled_dot_product_attention on the same rows and mask); cs_*: the same "
+        f"over the CS model's {n_cs_video} video layers of a microbatch under --sp 2 --tp 2 "
+        f"(q (2, 4, 256, 64) against k/v (2, 4, 512, 64), 4 of the 8 heads a model rank); "
+        f"max_abs_err and ok cover both shapes, fp32 and bf16; launches: both ranks' four "
+        f"steps in phase 8, every rank's steps of CS --sp 2 in phase 14 and of --sp 2 --tp 2 "
+        f"in phase 15. The same entry points with the causal mask (flash_attention.py:336) "
+        f"were checked above")
+    return rows
 
 
 def sp_rank_run(small_images, small_cond):
@@ -1702,6 +1593,7 @@ def gym_phase(fa, fc, n_blocks, frame_size=GYM_FRAME, extra_args=()):
     state's EMA rounded to bf16, and served by generate --unet.
     `frame_size` and `extra_args` (gym_train flags) shrink it for a
     rehearsal on the CPU."""
+    from autoregressive_diffusion_tpu_torch.ops.fused_conv import conv_calls
     import contextlib
     import io
     import numpy as np
@@ -2139,6 +2031,7 @@ def cs_phase(fa, fc, model_channels=128, n_clips=8, clip_frames=CS_CLIP_FRAMES,
     finite MSE, a uint8 PNG), then the cached denoiser call timed and
     profiled. `model_channels`, `n_clips`, `clip_frames` and `frame_size`
     shrink it for a rehearsal on the CPU."""
+    from autoregressive_diffusion_tpu_torch.ops.fused_conv import conv_calls
     import contextlib
     import io
     import numpy as np
@@ -3014,7 +2907,7 @@ def dropout_remat_check(fa, fc, build_trainer, synthetic_batch, run_steps, edm2_
 
 
 def ref_drift_phase(fa, fc, build_trainer, synthetic_batch, run_steps, edm2_loss, loss_cfg,
-                    drift_frames=8, dropout_steps=3, overrides=None, unet=R3_UNET):
+                    drift_frames=4, dropout_steps=3, overrides=None, unet=R3_UNET):
     """Phase 13: (a) reference_checks and body_check on the card, with the
     kernels' launches counted; (b) dropout_remat_check at full width; (c)
     rollout_drift on the r3 weights and the trained VAE over the committed
@@ -3144,7 +3037,10 @@ def ref_drift_phase(fa, fc, build_trainer, synthetic_batch, run_steps, edm2_loss
 # share cuda:0 under gloo, whose collectives cross the host
 
 TP_SHARD = 128   # cs_train's min_shard_size: the output widths --tp splits
-TP_STEPS = 2     # full-width DART steps a configuration (the first warms up)
+# full-width DART steps a configuration: one, its time with the warm-up
+# (a first step ran 1-36% slower than a second), to keep the run within
+# its time limit
+TP_STEPS = 1
 TP_CONFIGS = (("tp2", ["--tp", "2"]), ("fsdp", ["--fsdp"]), ("sp2", ["--sp", "2"]))
 # (b), (d): the CS layout at 32 channels (widths 32-128, so that --tp
 # splits the 128-wide convs and attention), fp32, 2 steps (just_2d, DART)
@@ -3156,6 +3052,7 @@ ONE_PROCESS_STATE_MB = 5911.6  # the 310M CS train state in one process (phase 1
 def tp_local_calls(cfg, tp=2):
     """conv_calls with every output width that cs_train --tp splits
     (divisible by tp and at least TP_SHARD) cut to one rank's part."""
+    from autoregressive_diffusion_tpu_torch.ops.fused_conv import conv_calls
     return [(n, (h, c, co // tp if co % tp == 0 and co >= TP_SHARD else co, silu, cv))
             for n, (h, c, co, silu, cv) in conv_calls(cfg)]
 
@@ -3223,6 +3120,29 @@ def time_collectives() -> dict:
     return stats
 
 
+def record_sp(fa) -> dict:
+    """Wrap row 8's forward entry point and the K/V gather in the port's
+    flash_attention module (both reached there by module-global name):
+    every SP forward call appends its (q heads, k heads) to rec["heads"],
+    every K/V gather (bytes this rank sends: its K and V, bytes it receives:
+    every seq rank's) to rec["kv_bytes"]. The launch counters stay the
+    kernels' own."""
+    rec = dict(heads=[], kv_bytes=[])
+    fwd, gather = fa.flash_attention_sp_fwd, fa.gather_kv
+
+    def sp_fwd(qs, k, *args):
+        rec["heads"].append((qs.shape[1], k.shape[1]))
+        return fwd(qs, k, *args)
+
+    def gather_kv(k, v, group):
+        n = (k.numel() + v.numel()) * k.element_size()
+        rec["kv_bytes"].append((n, n * torch.distributed.get_world_size(group)))
+        return gather(k, v, group)
+
+    fa.flash_attention_sp_fwd, fa.gather_kv = sp_fwd, gather_kv
+    return rec
+
+
 def tp_small_rank(argv):
     """(b), (d): cs_train at TP_SMALL on this rank of 4 (tp 2 x dp 2, FSDP):
     its loop and final save, the launches counted from 0; the losses, the
@@ -3260,6 +3180,7 @@ def tp_cs_rank(configs, steps, device):
     under `flags`, `steps` DART steps through CSTrainer.step, each step's
     launches counted from 0; step ms, peak MB after the build, the state's
     MB, the replica check, the configuration's seconds."""
+    from autoregressive_diffusion_tpu_torch.ops.fused_conv import conv_calls
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from autoregressive_diffusion_tpu_torch import cs_train
@@ -3272,6 +3193,7 @@ def tp_cs_rank(configs, steps, device):
     cuda = device == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     coll = time_collectives()
+    rec = record_sp(fa)
     results = {}
     for name, flags in configs:
         t_cfg = time.perf_counter()
@@ -3290,12 +3212,17 @@ def tp_cs_rank(configs, steps, device):
             sync()
             rank_counts(fa, fc, zero=True)
             coll.clear()
+            rec["heads"].clear()
+            rec["kv_bytes"].clear()
             t0 = time.perf_counter()
             m = tr.step(i, latents, actions)
             loss = float(m["loss"])
             sync()
             rows.append(dict(step=i, loss=loss, ms=(time.perf_counter() - t0) * 1e3,
                              collectives={k: (n, s * 1e3) for k, (n, s) in coll.items()},
+                             sp_heads=sorted(set(rec["heads"])), kv_calls=len(rec["kv_bytes"]),
+                             kv_sent=sum(b for b, _ in rec["kv_bytes"]),
+                             kv_received=sum(b for _, b in rec["kv_bytes"]),
                              counts=rank_counts(fa, fc),
                              grads_finite=all(bool(torch.isfinite(p.grad).all())
                                               for p in model.parameters())))
@@ -3305,6 +3232,8 @@ def tp_cs_rank(configs, steps, device):
             peak_mb=torch.cuda.max_memory_allocated() / 2 ** 20 if cuda else None,
             mismatches=check_replica_consistency(named, tr.mesh, specs=specs),
             n_video=sum(isinstance(x, VideoAttention) for x in model.modules()),
+            video_heads=max(x.num_heads for x in model.modules()
+                            if isinstance(x, VideoAttention)),
             n_frame=sum(isinstance(x, FrameAttention) for x in model.modules()),
             n_convs=len(conv_calls(tr.cfg)), micro=args.batch // args.micro_batch,
             local_batch=args.batch // tr.mesh.batch_ranks,
@@ -3318,6 +3247,64 @@ def tp_cs_rank(configs, steps, device):
     return results
 
 
+def full_width_report(name, ranks, steps, launches, failures, tag="tp"):
+    """Log and check tp_cs_rank's results of configuration `name` on every
+    rank: each step's launches against the model's layers, the SP calls'
+    heads against sp_head_shards' rule (num_heads / tp a model rank when
+    tp divides them under SP), finite losses and gradients, the ranks'
+    agreement; the ms inside the collectives by kind and the K/V gather's
+    bytes of the last step, step ms, peak MB and state MB. Adds the
+    launches into `launches` and the faults to `failures`."""
+    import numpy as np
+    for res in ranks:
+        r, sp, tp = res["rank"], res["grid"]["sp"], res["grid"]["tp"]
+        mb, nv, nf, nc = res["micro"], res["n_video"], res["n_frame"], res["n_convs"]
+        want_c = dict(conv_fwd=mb * nc, conv_bwd=mb * nc,
+                      dart_fwd=0 if sp > 1 else mb * nv, dart_bwd=0 if sp > 1 else mb * nv,
+                      full_fwd=mb * nf, full_bwd=mb * nf,
+                      dart_sp_fwd=mb * nv if sp > 1 else 0,
+                      dart_sp_bwd=mb * nv if sp > 1 else 0,
+                      causal_sp_fwd=0, causal_sp_bwd=0)
+        heads = res["video_heads"]
+        local = heads // tp if sp > 1 and tp > 1 and heads % tp == 0 else heads
+        want_h = [(local, local)] if sp > 1 else []
+        for row in res["rows"]:
+            ok = (row["counts"] == want_c and row["sp_heads"] == want_h
+                  and np.isfinite(row["loss"]) and row["grads_finite"])
+            log(f"# {tag} {name} rank {r} step {row['step']} dart loss={row['loss']:.4f} "
+                f"step_ms={row['ms']:.1f} launches {row['counts']} SP heads (q, k) "
+                f"{row['sp_heads']} of {heads} ok={ok}")
+            if not ok:
+                failures.append(f"{tag} {name} rank {r} step {row['step']}: launches "
+                                f"{row['counts']} (want {want_c}), SP heads {row['sp_heads']} "
+                                f"(want {want_h}) or not finite")
+            for k in launches:
+                launches[k] += row["counts"].get(k, 0)
+        later = [x["ms"] for x in res["rows"][1:]] or [res["rows"][0]["ms"]]
+        last = res["rows"][-1]
+        in_coll = sum(ms for _, ms in last["collectives"].values())
+        log(f"# {tag} {name} rank {r} step {last['step']}: {in_coll:.1f} of {last['ms']:.1f} ms "
+            f"inside the collectives (host staging and waits included): " + ", ".join(
+                f"{k} {n} calls {ms:.1f} ms" for k, (n, ms) in sorted(last["collectives"].items()))
+            + f"; K/V gather {last['kv_calls']} calls, {last['kv_sent'] / 2 ** 20:.2f} MiB sent, "
+            f"{last['kv_received'] / 2 ** 20:.2f} MiB received (the backward's reduce-scatter "
+            f"of dK, dV moves as much)")
+        peak = "n/a" if res["peak_mb"] is None else f"{res['peak_mb']:.1f}"
+        log(f"# {tag} {name} rank {r}: grid {res['grid']}, local batch {res['local_batch']} in "
+            f"{mb} microbatches, {res['n_params'] / 1e6:.1f}M params; DART step "
+            f"{sum(later) / len(later):.1f} ms ("
+            f"{f'steps 2-{steps}' if steps > 1 else 'step 1, warm-up included'}; "
+            f"{res['batch'] * 1e3 * len(later) / sum(later):.3f} samples/s of the global batch "
+            f"{res['batch']}), peak_mb={peak}, params+Adam+EMA {res['state_mb']:.1f} MB "
+            f"({res['state_mb'] / ONE_PROCESS_STATE_MB:.3f} of one process's "
+            f"{ONE_PROCESS_STATE_MB} MB), replica mismatches {len(res['mismatches'])}; "
+            f"{res['seconds']:.1f} s with the build")
+        if res["mismatches"]:
+            failures.append(f"{tag} {name} rank {r}: ranks disagree {res['mismatches'][:3]}")
+    if len({tuple(x["loss"] for x in res["rows"]) for res in ranks}) != 1:
+        failures.append(f"{tag} {name}: the ranks report different global losses")
+
+
 def tp_phase(fc, cs_cfg, steps=TP_STEPS, small=TP_SMALL, full_flags=()):
     """Phase 14: (a) the fused conv kernels at the TP-local CS shapes
     against their plain version; (b) cs_train --tp 2 --fsdp at TP_SMALL on 4
@@ -3329,6 +3316,7 @@ def tp_phase(fc, cs_cfg, steps=TP_STEPS, small=TP_SMALL, full_flags=()):
     conv and flash launches of each step against the model's layers.
     `small` and `full_flags` (e.g. ["--model-channels", "16"]) shrink it for
     a rehearsal on the CPU. Returns (failures, summary, launches)."""
+    from autoregressive_diffusion_tpu_torch.ops.fused_conv import conv_calls
     import contextlib
     import io
     import numpy as np
@@ -3422,53 +3410,202 @@ def tp_phase(fc, cs_cfg, steps=TP_STEPS, small=TP_SMALL, full_flags=()):
                                    timeout=900)
         summary["full_wall_s"] = time.perf_counter() - t0
         for name, _ in TP_CONFIGS:
-            ranks = [res[name] for res in per_rank]
-            for res in ranks:
-                r, sp = res["rank"], res["grid"]["sp"]
-                mb, nv, nf, nc = res["micro"], res["n_video"], res["n_frame"], res["n_convs"]
-                want_c = dict(conv_fwd=mb * nc, conv_bwd=mb * nc,
-                              dart_fwd=0 if sp > 1 else mb * nv, dart_bwd=0 if sp > 1 else mb * nv,
-                              full_fwd=mb * nf, full_bwd=mb * nf,
-                              dart_sp_fwd=mb * nv if sp > 1 else 0,
-                              dart_sp_bwd=mb * nv if sp > 1 else 0,
-                              causal_sp_fwd=0, causal_sp_bwd=0)
-                for row in res["rows"]:
-                    ok = (row["counts"] == want_c and np.isfinite(row["loss"])
-                          and row["grads_finite"])
-                    log(f"# tp {name} rank {r} step {row['step']} dart loss={row['loss']:.4f} "
-                        f"step_ms={row['ms']:.1f} launches {row['counts']} ok={ok}")
-                    if not ok:
-                        failures.append(f"tp {name} rank {r} step {row['step']}: launches "
-                                        f"{row['counts']} (want {want_c}) or not finite")
-                    for k in launches:
-                        launches[k] += row["counts"].get(k, 0)
-                later = [x["ms"] for x in res["rows"][1:]] or [res["rows"][0]["ms"]]
-                last = res["rows"][-1]
-                in_coll = sum(ms for _, ms in last["collectives"].values())
-                log(f"# tp {name} rank {r} step {last['step']}: {in_coll:.1f} of "
-                    f"{last['ms']:.1f} ms inside the collectives (host staging and waits "
-                    f"included): " + ", ".join(f"{k} {n} calls {ms:.1f} ms" for k, (n, ms)
-                                               in sorted(last["collectives"].items())))
-                peak = "n/a" if res["peak_mb"] is None else f"{res['peak_mb']:.1f}"
-                log(f"# tp {name} rank {r}: grid {res['grid']}, local batch "
-                    f"{res['local_batch']} in {mb} microbatches, {res['n_params'] / 1e6:.1f}M "
-                    f"params; DART step {sum(later) / len(later):.1f} ms (steps 2-{steps}; "
-                    f"{res['batch'] * 1e3 * len(later) / sum(later):.3f} samples/s of the global "
-                    f"batch {res['batch']}), peak_mb={peak}, params+Adam+EMA "
-                    f"{res['state_mb']:.1f} MB ({res['state_mb'] / ONE_PROCESS_STATE_MB:.3f} of "
-                    f"one process's {ONE_PROCESS_STATE_MB} MB), replica mismatches "
-                    f"{len(res['mismatches'])}; {res['seconds']:.1f} s with the build")
-                if res["mismatches"]:
-                    failures.append(f"tp {name} rank {r}: ranks disagree {res['mismatches'][:3]}")
-            if len({tuple(x["loss"] for x in res["rows"]) for res in ranks}) != 1:
-                failures.append(f"tp {name}: the ranks report different global losses")
-            summary["full"][name] = ranks
+            summary["full"][name] = [res[name] for res in per_rank]
+            full_width_report(name, summary["full"][name], steps, launches, failures)
         log(f"# tp full width: 2 ranks, {summary['full_wall_s']:.1f} s wall from spawn to the "
             f"last result")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     summary["seconds"] = time.perf_counter() - t_phase
     log(f"# tp phase: {summary['seconds']:.1f} s, launches {launches}")
+    return failures, summary, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 15: head-sharded attention under SP x TP (row 8 on num_heads / tp
+# heads a model rank), and the port's decode_budget, kernel_bench and
+# profile_train
+
+SPTP_FLAGS = ["--sp", "2", "--tp", "2"]
+SPTP_STEPS = 3          # (a): step 0 just_2d, steps 1 and 2 DART
+SPTP_FULL_STEPS = 2     # (b): full-width DART steps (the first warms up)
+TOL_SPTP_LOSS = 1e-6    # relative, each step's loss: phase 14's bound
+TOL_SPTP_PARAM = 1e-5   # max |dparam| after each step
+# (c): each tool at its defaults, but decode_budget's timed rollout cut
+# from 9 frames to 2 to stay within the run's limit (a frame is 127 cached
+# calls of about 80 ms; at 9 frames the tool took 168 s)
+TOOLS = (("decode_budget", ["--frames", "2"]), ("kernel_bench", []), ("profile_train", []))
+
+
+def flat_params(tree) -> dict:
+    import numpy as np
+    return {k: np.asarray(v, dtype=np.float32) for k, v in flat_tree(tree["params"]).items()}
+
+
+def sptp_small_rank(argv, steps):
+    """(a): cs_train at TP_SMALL under --sp 2 --tp 2 on this rank of 4,
+    `steps` steps through CSTrainer.step with the state gathered after
+    each; the losses, every SP call's heads, the launches, the replica
+    check, and on rank 0 the gathered parameters after each step."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from autoregressive_diffusion_tpu_torch import cs_train
+    from autoregressive_diffusion_tpu_torch.models.attention import VideoAttention
+    from autoregressive_diffusion_tpu_torch.ops import flash_attention as fa
+    from autoregressive_diffusion_tpu_torch.ops import fused_conv as fc
+    from autoregressive_diffusion_tpu_torch.parallel import (check_replica_consistency,
+                                                             gather_to_host, train_state_leaves)
+    tr = cs_train.build_trainer(cs_train.parse_args(argv))
+    rec = record_sp(fa)
+    loader = cs_train.make_loader(tr)
+    rank_counts(fa, fc, zero=True)
+    losses, params = [], []
+    for i in range(steps):
+        latents, actions = next(loader)
+        losses.append(float(tr.step(i, latents, actions)["loss"]))
+        host = gather_to_host(tr.state)
+        params.append(flat_params(host) if tr.mesh.rank == 0 else None)
+    counts = rank_counts(fa, fc)
+    named, specs = train_state_leaves(tr.state)
+    out = dict(rank=tr.mesh.rank, model_rank=tr.mesh.model_rank, seq_rank=tr.mesh.seq_rank,
+               losses=losses, params=params, counts=counts,
+               mismatches=check_replica_consistency(named, tr.mesh, specs=specs),
+               heads=sorted(set(rec["heads"])), n_sp_calls=len(rec["heads"]),
+               video_heads=sorted({m.num_heads for m in tr.state.model.modules()
+                                   if isinstance(m, VideoAttention)}))
+    torch.distributed.destroy_process_group()
+    return out
+
+
+def run_tools(tools=TOOLS) -> tuple:
+    """(c): each tool's main(flags) in this process, its lines logged as
+    "# tool <name>: ..."; (failures, {name: (summary, seconds)})."""
+    import contextlib
+    import importlib
+    import io
+    import math
+    import traceback
+    failures, out = [], {}
+    for name, flags in tools:
+        mod = importlib.import_module(f"{PKG}.{name}")
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                res = mod.main(flags)
+        except Exception as e:  # noqa: BLE001 -- a failed tool fails the phase, with its error
+            failures.append(f"tool {name}: {type(e).__name__}: {e}")
+            buf.write(traceback.format_exc())
+            res = None
+        seconds = time.perf_counter() - t0
+        for line in buf.getvalue().splitlines():
+            log(f"# tool {name}: {line}")
+        log(f"# tool {name}: {' '.join(flags) or 'defaults'}, {seconds:.1f} s")
+        out[name] = (res, seconds)
+        if res is None:
+            continue
+        if name == "decode_budget":
+            ok = (res["finite"] and res["device_kernels_per_nfe"] > 0 and res["us_per_nfe"] > 0
+                  and res["floor_hbm_us"] > 0)
+        elif name == "kernel_bench":
+            ok = len(res["shapes"]) > 0 and all(
+                0 < r[k] < math.inf for r in res["shapes"] for k in
+                ("kernel_fwd_ms", "kernel_fwd_bwd_ms", "cudnn_fwd_ms", "cudnn_fwd_bwd_ms"))
+        else:
+            ok = res["where"] == "device" and len(res["top"]) > 0 and math.isfinite(res["loss"])
+        if not ok:
+            failures.append(f"tool {name}: implausible result")
+    return failures, out
+
+
+def sptp_phase(fc, steps=SPTP_STEPS, small=TP_SMALL, full_steps=SPTP_FULL_STEPS, full_flags=(),
+               tools=TOOLS):
+    """Phase 15: (a) cs_train at TP_SMALL under --sp 2 --tp 2 on 4 ranks
+    sharing the card (gloo) against one process on the card, `steps`
+    steps: each step's loss within TOL_SPTP_LOSS relative and every
+    parameter within TOL_SPTP_PARAM after each step; every rank's SP calls
+    carry num_heads / 2 heads; (b) the full-width CS model under --sp 2 --tp
+    2 on 4 ranks, `full_steps` DART steps (tp_cs_rank, full_width_report:
+    step ms, the ms inside the collectives by kind, the K/V gather's bytes,
+    peak MB and state MB a rank); (c) the tools. Returns (failures,
+    summary, launches)."""
+    from autoregressive_diffusion_tpu_torch import cs_train
+    from autoregressive_diffusion_tpu_torch.parallel import run_local_ranks
+    from autoregressive_diffusion_tpu_torch.utils.bridge import train_state_tree
+    failures, summary = [], {}
+    launches = {k: 0 for k in ("conv_fwd", "conv_bwd", "dart_fwd", "dart_bwd", "full_fwd",
+                               "full_bwd", "dart_sp_fwd", "dart_sp_bwd")}
+    t_phase = time.perf_counter()
+    work = ROOT / "build" / f"sptp_phase_{int(time.time() * 1e3)}"
+    if "--steps" in small:  # the LR schedule's length: this phase's steps
+        i = small.index("--steps")
+        small = small[:i] + small[i + 2:]
+    small = small + ["--steps", str(steps)]
+    argv = small + ["--device", DEV, "--ckpt-dir", str(work)]
+    try:
+        # (a) one process, then 4 ranks
+        t0 = time.perf_counter()
+        one = cs_train.build_trainer(cs_train.parse_args(argv))
+        loader = cs_train.make_loader(one)
+        want_losses, want_params = [], []
+        for i in range(steps):
+            latents, actions = next(loader)
+            want_losses.append(float(one.step(i, latents, actions)["loss"]))
+            want_params.append(flat_params(train_state_tree(one.state)))
+        del one, loader
+        torch.cuda.empty_cache()
+        ranks = run_local_ranks(sptp_small_rank, 4, (argv + ["--backend", "gloo"] + SPTP_FLAGS,
+                                                     steps), timeout=600)
+        rel = [max(abs(r["losses"][i] - w) / abs(w) for r in ranks)
+               for i, w in enumerate(want_losses)]
+        dparam = [max(float(abs(got[n] - want[n]).max()) for n in want)
+                  for got, want in zip(ranks[0]["params"], want_params)]
+        heads = ranks[0]["video_heads"]
+        want_h = [(heads[0] // 2, heads[0] // 2)] if len(heads) == 1 and heads[0] % 2 == 0 else None
+        ok_a = (max(rel) <= TOL_SPTP_LOSS and max(dparam) <= TOL_SPTP_PARAM
+                and all(set(p) == set(w) for p, w in zip(ranks[0]["params"], want_params))
+                and all(r["heads"] == want_h and r["n_sp_calls"] > 0 and not r["mismatches"]
+                        for r in ranks))
+        log(f"# sptp small (cs_train {' '.join(small)}) sp 2 x tp 2 on 4 ranks of {DEV} (gloo) "
+            f"vs one process, {steps} steps: losses {ranks[0]['losses']} vs {want_losses}, max "
+            f"rel a step {[f'{x:.2e}' for x in rel]} (tol {TOL_SPTP_LOSS:.0e}), max |dparam| a "
+            f"step {[f'{x:.2e}' for x in dparam]} (tol {TOL_SPTP_PARAM:.0e}); video heads "
+            f"{heads}, every rank's SP calls (q, k heads) "
+            f"{[(r['rank'], r['heads'], r['n_sp_calls']) for r in ranks]}; replica mismatches "
+            f"{sum(len(r['mismatches']) for r in ranks)}; launches a rank {ranks[0]['counts']} "
+            f"ok={ok_a}")
+        if not ok_a:
+            failures.append("sptp small: 4 ranks against one process, or SP heads")
+        for r in ranks:
+            for k in launches:
+                launches[k] += r["counts"].get(k, 0)
+        summary["small"] = dict(losses=[r["losses"] for r in ranks], want=want_losses,
+                                max_rel=rel, dparam=dparam,
+                                heads=[r["heads"] for r in ranks],
+                                counts=[r["counts"] for r in ranks],
+                                seconds=time.perf_counter() - t0)
+        del ranks
+        torch.cuda.empty_cache()
+
+        # (b) the full-width CS model on 4 ranks
+        t0 = time.perf_counter()
+        per_rank = run_local_ranks(tp_cs_rank, 4, ([("sp2_tp2", SPTP_FLAGS + list(full_flags))],
+                                                   full_steps, DEV), timeout=900)
+        summary["full"] = [res["sp2_tp2"] for res in per_rank]
+        full_width_report("sp2_tp2", summary["full"], full_steps, launches, failures,
+                          tag="sptp")
+        summary["full_wall_s"] = time.perf_counter() - t0
+        log(f"# sptp full width: 4 ranks, {summary['full_wall_s']:.1f} s wall from spawn to "
+            f"the last result")
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    # (c) the tools
+    tool_failures, summary["tools"] = run_tools(tools)
+    failures += tool_failures
+    summary["seconds"] = time.perf_counter() - t_phase
+    log(f"# sptp phase: {summary['seconds']:.1f} s, launches {launches}")
     return failures, summary, launches
 
 
@@ -3620,6 +3757,10 @@ def main(argv=None):
 
     # phase 8: sequence parallelism
     sp_results = sp_kernel_phase(fa, masks, F)
+    # the CS model's row-8 shape under cs_train --sp 2 --tp 2 (phase 15's
+    # path): microbatch 2, 4 of the 8 heads a model rank, 4x4 video layers
+    sp_results.update(sp_kernel_phase(fa, masks, F, b=2, heads=4, hw=16,
+                                      cases=(("dart", 16),), sps=(2,), label="cs"))
     failures += [f"sp attention kernels {k}" for k, r in sp_results.items() if not r["ok"]]
     torch.cuda.empty_cache()
     sp_failures, sp_ranks = sp_path_phase(build_trainer, len(calls))
@@ -3683,6 +3824,16 @@ def main(argv=None):
     train_flash = tuple(t + tp_launches[k] for t, k in
                         zip(train_flash, ("dart_fwd", "dart_bwd", "full_fwd", "full_bwd")))
 
+    # phase 15: head-sharded attention under SP x TP (cs_train --sp 2 --tp
+    # 2, 4 ranks sharing this card), then the tools
+    torch.cuda.empty_cache()
+    sptp_failures, sptp_summary, sptp_launches = sptp_phase(fc)
+    failures += sptp_failures
+    launches_cf += sptp_launches["conv_fwd"]
+    launches_cb += sptp_launches["conv_bwd"]
+    train_flash = tuple(t + sptp_launches[k] for t, k in
+                        zip(train_flash, ("dart_fwd", "dart_bwd", "full_fwd", "full_bwd")))
+
     # the kernels line: main-path shapes in the main path's dtype (bf16)
     main_attn = next(r for r in attn_rows
                      if r["dtype"] == "bfloat16" and r["case"] == "ring off=0 t=8 F=64")
@@ -3731,34 +3882,12 @@ def main(argv=None):
         f"library_ms are device times; library: F.scaled_dot_product_attention on the same "
         f"mask, for full the faster of the mask and no mask); launches: "
         f"rollout {rollout_flash}, training {tuple(train_flash)} (dart fwd/bwd, full fwd/bwd)")
-    # the SP kernels: one rank's calls over the 6 video layers of a DART step
-    # (sp=2, bf16, mean of the two ranks); launches over both ranks' steps
-    n_video_layers = sp_ranks[0]["gym"]["n_video"]
-    for which in ("fwd", "bwd"):
-        rs = [sp_results[("dart", "bfloat16", 2, r)] for r in range(2)]
-        errs = [v["max_abs_err"] for k, v in sp_results.items()
-                if k[0] == "dart" and k[3] != "stack"]
-
-        def per_step(key):
-            return n_video_layers * sum(r[key] for r in rs) / len(rs)
-
-        kernels.append(dict(
-            name=f"dart_attention_sp_{which}", route="cuda",
-            source=f"{PKG}/csrc/flash_attention_{which}.cu",
-            replaces="autoregressive_diffusion_tpu/ops/flash_attention.py:326",
-            launches=(sum(c[f"dart_sp_{which}"] for res in sp_ranks for c in res["gym"]["counts"])
-                      + tp_launches[f"dart_sp_{which}"]),
-            max_abs_err=max(errs), ms=per_step(f"{which}_ms"),
-            plain_ms=per_step(f"plain_{which}_ms"), bound_ms=per_step(f"bound_{which}_ms"),
-            bound_by=rs[0][f"bound_{which}_by"], library_ms=per_step(f"library_{which}_ms"),
-            ok=all(v["ok"] for v in sp_results.values())))
-    log(f"# dart_attention_sp ms/plain_ms/bound_ms/library_ms are one rank's sums over the "
-        f"{n_video_layers} video layers of a DART step (sp=2, bf16, q (8, 4, 512, 64) against "
-        f"k/v (8, 4, 1024, 64), mean of the two ranks; ms and library_ms are device times; "
-        f"library: F.scaled_dot_product_attention on the same rows and mask); launches: both "
-        f"ranks' four steps in phase 8 and both ranks' steps of CS --sp 2 in phase 14. The "
-        f"same entry points "
-        f"with the causal mask (flash_attention.py:336) were checked above")
+    kernels += sp_kernel_rows(
+        sp_results, sp_ranks[0]["gym"]["n_video"],
+        sum(spec.get("attention") == "video" for _, _, spec in cs_cfg.block_layout()),
+        {which: (sum(c[f"dart_sp_{which}"] for res in sp_ranks for c in res["gym"]["counts"])
+                 + tp_launches[f"dart_sp_{which}"] + sptp_launches[f"dart_sp_{which}"])
+         for which in ("fwd", "bwd")})
     for k in kernels:
         if k["launches"] == 0:
             failures.append(f"{k['name']} never launched on the main path")
@@ -3793,13 +3922,16 @@ def main(argv=None):
                                        for k, v in flash_results.items()],
                       train_grad_err=grad_err, train=train_summary,
                       trained=trained["summary"],
-                      sp_attention=[dict(kind=k[0], dtype=k[1], sp=k[2], rank=k[3], **v)
+                      sp_attention=[dict(shape=k[0], kind=k[1], dtype=k[2], sp=k[3],
+                                         rank=k[4], **v)
                                     for k, v in sp_results.items()],
                       sp_path=[dict(rank=r["rank"], small_losses=r["small"]["losses"],
                                     **{k: v for k, v in r["gym"].items()})
                                for r in sp_ranks],
                       gym=gym_summary, cs=cs_summary, cs_kernels=cs_kernels,
-                      vae_train=vae_summary, ref_drift=ref_summary, tp=tp_summary)
+                      vae_train=vae_summary, ref_drift=ref_summary, tp=tp_summary,
+                      sptp={k: v for k, v in sptp_summary.items() if k != "tools"},
+                      tools={k: v for k, v in sptp_summary["tools"].items()})
         Path(args.out).write_text(json.dumps(detail, indent=1))
 
     log(f"# total {time.perf_counter() - t_start:.1f} s")

@@ -20,6 +20,14 @@
     perturbs.
 (5) cs_train --tp 2 --fsdp --synthetic at 16 channels on 4 ranks for 2
     steps and a save, resumed in one process: every leaf bit for bit.
+(6) Head-sharded attention under SP x TP: in the sp 2 x tp 2 grid every
+    SP attention call (row 8) of every rank carries 1 of the model's 2
+    heads (and the steps still equal one process, (3)); gather_model_partial
+    (the qkv gather whose backward reduce-scatters) against its definition
+    on the model group; and, without ranks, the port's gate
+    (sp_head_shards) against the JAX package's (sp_flash_supported's
+    head_axis) over grids and head counts, tp not dividing the heads among
+    them.
 The ranks run in processes of parallel.run_local_ranks; their functions are
 in tests/test_torch_tp_fsdp_workers.py, which imports no JAX. On one worker
 (-p no:xdist) the file takes about 90 s.
@@ -39,11 +47,13 @@ from test_torch_train_step import jax_draws
 from autoregressive_diffusion_tpu import train as j_train
 from autoregressive_diffusion_tpu.models import Precond as JPrecond
 from autoregressive_diffusion_tpu.models import UNetConfig as JConfig
+from autoregressive_diffusion_tpu.ops import flash_attention as j_fa
 from autoregressive_diffusion_tpu.parallel import create_mesh as jax_mesh
 from autoregressive_diffusion_tpu.parallel import param_sharding as jax_param_sharding
 from autoregressive_diffusion_tpu.parallel import shard_train_state as jax_shard_train_state
 from autoregressive_diffusion_tpu_torch import cs_train
 from autoregressive_diffusion_tpu_torch.models import Precond, UNetConfig, init_weights
+from autoregressive_diffusion_tpu_torch.ops import flash_attention as fa
 from autoregressive_diffusion_tpu_torch.parallel import (param_sharding, run_local_ranks,
                                                          shard_train_state)
 from autoregressive_diffusion_tpu_torch.utils.bridge import (jax_variables, load_jax_train_state,
@@ -237,6 +247,50 @@ def test_sharded_steps_match_the_one_process_step(name, reference, grid_runs):
     # each rank holds less than the whole model when something is sharded
     total = sum(v.size for v in ranks[0]["params"][0].values())
     assert all(got["local_numel"] < total for got in ranks)
+
+
+def test_sp_attention_runs_this_ranks_heads(grid_runs):
+    """Row 8's calls under sp 2 x tp 2 carry num_heads / tp heads (q and the
+    gathered k alike); without SP there are none. And in every grid's ranks,
+    gather_model_partial against its definition: each rank weighs only its
+    own column ranges of the gathered tensor, so its gradient is the sum
+    over the model ranks; the plain gather_model's, this rank's part alone,
+    is not."""
+    for name, grid in GRIDS.items():
+        for r, got in enumerate(grid_runs[name]):
+            assert got["video_heads"] == [2], got["video_heads"]
+            if grid["sp"] > 1:
+                heads = 2 // grid["tp"]
+                assert got["sp_calls"] == [("flash_attention_sp_bwd", heads, heads),
+                                           ("flash_attention_sp_fwd", heads, heads)], (r, got)
+                assert got["n_sp_calls"] > 0
+            else:
+                assert got["n_sp_calls"] == 0, (name, r, got["sp_calls"])
+            check = got["partial_gather"]
+            assert check["partial"]["forward"] and check["plain"]["forward"], (name, r)
+            assert check["partial"]["grad_err"] < 1e-6, (name, r, check)
+            assert check["plain"]["grad_err"] > 0.1, (name, r, check)
+
+
+def test_head_shard_gate_matches_jax():
+    """sp_head_shards(num_heads) > 1 exactly where the JAX package's
+    sp_flash_supported keeps head_axis 'model' (an interpreted SP context
+    on conftest's 8 host devices), and then equals tp; tp not dividing the
+    heads keeps every head on every rank."""
+    before_j, before_t = j_fa.sp_context(), fa.sp_context()
+    try:
+        for sp, tp, heads in [(2, 2, 2), (2, 2, 3), (2, 4, 8), (2, 4, 6), (1, 2, 2),
+                              (2, 1, 2), (4, 2, 4)]:
+            j_fa.set_sp_context(jax_mesh(tp=tp, sp=sp), interpret=True)
+            ok, _, _, head_axis, _ = j_fa.sp_flash_supported(sp * 128, heads)
+            fa.set_sp_context(SimpleNamespace(sp=sp, tp=tp))
+            got = fa.sp_head_shards(heads)
+            assert ok == (sp > 1), (sp, tp, heads)
+            assert (got > 1) == (head_axis == "model"), (sp, tp, heads, got, head_axis)
+            assert got == (tp if sp > 1 and tp > 1 and heads % tp == 0 else 1), (sp, tp, heads)
+    finally:
+        j_fa._SP_CTX = before_j
+        fa.set_sp_context(before_t)
 
 
 @pytest.mark.parametrize("name", list(GRIDS))

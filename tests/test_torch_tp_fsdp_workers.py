@@ -9,9 +9,13 @@ import numpy as np
 import torch
 
 from autoregressive_diffusion_tpu_torch.models import Precond, UNetConfig
+from autoregressive_diffusion_tpu_torch.models.attention import VideoAttention
+from autoregressive_diffusion_tpu_torch.ops import flash_attention as fa
 from autoregressive_diffusion_tpu_torch.parallel import (check_replica_consistency, create_mesh,
-                                                         gather_to_host, seq_slice,
-                                                         shard_train_state, train_state_leaves)
+                                                         gather_model, gather_model_partial,
+                                                         gather_to_host,
+                                                         seq_slice, shard_train_state,
+                                                         train_state_leaves)
 from autoregressive_diffusion_tpu_torch.parallel.mesh import is_sharded
 from autoregressive_diffusion_tpu_torch.train import (EDM2LossConfig, create_train_state,
                                                       make_optimizer, make_train_step)
@@ -62,6 +66,43 @@ def flat(tree, prefix=""):
     return out
 
 
+def record_sp_heads() -> list:
+    """Wrap the SP attention entry points (row 8) so that every call
+    appends (entry point, q heads, k heads); returns the list they fill."""
+    seen = []
+    for name in ("flash_attention_sp_fwd", "flash_attention_sp_bwd"):
+        def recorded(qs, k, *args, _fn=getattr(fa, name), _name=name):
+            seen.append((_name, qs.shape[1], k.shape[1]))
+            return _fn(qs, k, *args)
+        setattr(fa, name, recorded)
+    return seen
+
+
+def partial_gather_check(mesh) -> dict:
+    """gather_model_partial against its definition on the model group:
+    every model rank weighs only its own strided column ranges of the
+    gathered tensor (as head-sharded attention keeps its heads' q, k, v of
+    the (s m c) qkv), so the gradient at rank r's chunk is the sum over the
+    ranks of their weights there. Also the plain gather_model's backward,
+    which takes this rank's slice of its own gradient only."""
+    tp, r, c = mesh.tp, mesh.model_rank, 4
+    g = torch.Generator().manual_seed(7)
+    chunks = torch.randn((tp, 3, 5, c), generator=g)  # every rank's chunk
+    weights = torch.randn((tp, 3, 5, tp * c), generator=g)
+    used = (torch.arange(tp * c) // 2) % tp  # the rank that uses each column
+    weights = weights * (used[None, None, None, :] == torch.arange(tp)[:, None, None, None])
+    want = weights.sum(0)[..., r * c:(r + 1) * c]
+    out = {}
+    for name, fn in (("partial", gather_model_partial), ("plain", gather_model)):
+        y = chunks[r].clone().requires_grad_(True)
+        full = fn(y, mesh.model_group)
+        (full * weights[r]).sum().backward()
+        out[name] = dict(forward=bool(torch.equal(full.detach(),
+                                                  chunks.movedim(0, -2).reshape(3, 5, tp * c))),
+                         grad_err=float((y.grad - want).abs().max()))
+    return out
+
+
 def sharded_steps(grids, start, draws):
     """For each (name, grid) of `grids` in turn (dp, sp, tp, slices, fsdp;
     the process group stays, each grid makes its own groups): two steps of
@@ -70,15 +111,19 @@ def sharded_steps(grids, start, draws):
     losses, and on rank 0 the gathered parameters after each step}. Then:
     the ranks' replica check on the sharded state; gather_to_host loaded
     into a fresh state and sharded again, against this rank's leaves bit for
-    bit; the replica check after rank 1 perturbs one shard."""
+    bit; the replica check after rank 1 perturbs one shard; the heads of
+    every SP attention call of the steps (record_sp_heads) and, with tp > 1,
+    partial_gather_check on the grid's model group."""
     torch.set_num_threads(1)
     out = {}
+    sp_calls = record_sp_heads()
     for name, grid in grids:
         mesh = create_mesh(grid["dp"], grid["sp"], "gloo", "cpu", tp=grid["tp"],
                            num_slices=grid["slices"])
         state, step = make_state(start, mesh, MICRO // mesh.batch_ranks)
         _, specs = shard_train_state(state, mesh, fsdp=grid["fsdp"], **SHARD)
         losses, params = [], []
+        sp_calls.clear()
         for images, cond, sigma, noise in draws:
             state, m = step(state, seq_slice(images, mesh), seq_slice(cond, mesh), 0,
                             sigma=local_draw(sigma, mesh), noise=local_draw(noise, mesh))
@@ -105,7 +150,11 @@ def sharded_steps(grids, start, draws):
                          victim=victim, roundtrip=roundtrip,
                          n_sharded={k: sum(1 for s in specs.values() if k in (s or ()))
                                     for k in ("model", "data")},
-                         local_numel=sum(p.numel() for p in state.model.parameters()))
+                         local_numel=sum(p.numel() for p in state.model.parameters()),
+                         sp_calls=sorted(set(sp_calls)), n_sp_calls=len(sp_calls),
+                         video_heads=sorted({m.num_heads for m in state.model.modules()
+                                             if isinstance(m, VideoAttention)}),
+                         partial_gather=partial_gather_check(mesh) if mesh.tp > 1 else None)
     torch.distributed.destroy_process_group()
     return out
 

@@ -148,6 +148,11 @@ def test_profiling_trace_top_ops_and_benchmark(tmp_path):
     names = [e.get("name") for e in json.loads((tmp_path / "t.json").read_text())["traceEvents"]]
     assert "my_range" in names and "aten::mm" in names
     assert profiling.top_ops(prof) == []  # no card: no device-side events
+    # the raw-event counts behind every sum, against key_averages()
+    counts, device = profiling.event_totals(prof)
+    averaged = {e.key: e.count for e in prof.key_averages()}
+    assert device == {} and counts["aten::mm"] == averaged["aten::mm"] == 1
+    assert counts["my_range"] == averaged["my_range"]
     calls = []
     r = profiling.benchmark(lambda: calls.append(1), warmup=2, iters=10)
     assert len(calls) == 2 + 1 + 1 + 10 and r["iters"] == 10.0 and r["device"] == "cpu"
