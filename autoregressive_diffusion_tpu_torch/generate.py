@@ -30,7 +30,7 @@ from .models.vae import latents_to_frames
 from .sampling import generate
 from .utils.bridge import build_precond, from_bundle, jax_variables, vae_from_bundle
 from .utils.device import resolve_device
-from .utils.profiling import kernel_times, window_summary
+from .utils.profiling import kernel_times, trace, window_summary
 
 GYM_CONFIG = dict(img_resolution=64, img_channels=8, label_dim=4,
                   model_channels=32, channel_mult=(1, 2, 4, 8), num_blocks=2,
@@ -145,9 +145,8 @@ def profile_decode(model, cache, calls: int = 10, trace_path=None) -> dict:
     """torch.profiler over `calls` chained cached single-frame denoiser
     calls: wall time, device busy time and idle share, kernel launches and
     the ops with the most device time, all per call. Writes a Chrome trace
-    to `trace_path` if given."""
-    from torch.profiler import ProfilerActivity, profile
-
+    to `trace_path` if given, the program's spans (model.call, model.block,
+    model.attention) among its ranges."""
     dev = next(model.parameters()).device
     cfg = model.cfg
     x = torch.randn((1, 1, cfg.img_resolution, cfg.img_resolution, cfg.img_channels),
@@ -156,8 +155,7 @@ def profile_decode(model, cache, calls: int = 10, trace_path=None) -> dict:
     c1 = torch.zeros((1, 1), dtype=torch.long, device=dev)
     x = model(x, s1, c1, cache=cache)[0]  # warm-up outside the window
     _sync(dev)
-    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
-    with profile(activities=acts) as prof:
+    with trace(None) as prof:
         t0 = time.perf_counter()
         for _ in range(calls):
             x = model(x, s1, c1, cache=cache)[0]

@@ -49,6 +49,7 @@ from ..ops.masks import ring_slot_position
 from ..ops.numerics import mp_sum, normalize
 from ..ops.rope import apply_rope, rope_qk, rope_tables
 from ..parallel.collectives import gather_model
+from ..utils.profiling import span
 from .layers import MPConv
 
 
@@ -135,45 +136,50 @@ class VideoAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, cache=None, update_cache: bool = False,
                 frames: int = 0, just_2d: bool = False, mode: str = "eval"):
-        b, t, h, w = x.shape[:4]
-        hw = h * w
-        shards = sp_head_shards(self.num_heads) if mode == "train" and not just_2d else 1
-        if shards == 1:
-            q, k, v = _split_qkv(self.attn_qkv(x), self.num_heads)
-        else:
-            mesh = sp_context()
-            m_l = self.num_heads // shards
-            q, k, v = _split_qkv(self.attn_qkv(x, partial_use=mesh.model_group),
-                                 self.num_heads, slice(mesh.model_rank * m_l,
-                                                       (mesh.model_rank + 1) * m_l))
-        if just_2d:
-            o = _per_frame_attention(q, k, v)
-        elif mode == "train":
-            o = self._train_attention(q, k, v, b, t, hw, frames)
-        else:
-            o = self._eval_attention(q, k, v, cache, frames, b, t, hw)
-            if update_cache:
-                if cache is None:
-                    shape = (b, self.num_heads, self.max_frames, hw, k.shape[-1])
-                    kbuf = torch.zeros(shape, dtype=torch.int8 if self.quant else k.dtype,
-                                       device=k.device)
-                    vbuf = torch.zeros_like(kbuf)
-                else:
-                    kbuf, vbuf = cache["k"], cache["v"]
-                kbuf = ring_write(kbuf, _to_cache_dtype(k, kbuf), frames)
-                vbuf = ring_write(vbuf, _to_cache_dtype(v, vbuf), frames)
-                cache = {"k": kbuf, "v": vbuf,
-                         **decode_tables(kbuf, vbuf, frames + t, k.dtype)}
-        y = einops.rearrange(o, "b m t (h w) c -> b t h w (m c)", h=h, w=w)
-        if shards > 1:
-            # every model rank's heads, rank-major = the (m c) order. The
-            # backward takes this rank's heads' slice, which is right because
-            # the gradient arriving here is the same on every model rank:
-            # attn_proj's input passes copy_to_model when its weight is split,
-            # and everything after it is replicated when it is not.
-            y = gather_model(y, sp_context().model_group)
-        y = self.attn_proj(y)
-        return mp_sum(x, y, t=self.attn_balance), cache
+        """The layer inside a model.attention span (kind "video";
+        ring_frames: the frames its ring holds when the call starts, 0
+        without a cache), the ring write and decode tables included."""
+        ring = 0 if cache is None else min(frames, self.max_frames)
+        with span("model.attention", kind="video", ring_frames=ring):
+            b, t, h, w = x.shape[:4]
+            hw = h * w
+            shards = sp_head_shards(self.num_heads) if mode == "train" and not just_2d else 1
+            if shards == 1:
+                q, k, v = _split_qkv(self.attn_qkv(x), self.num_heads)
+            else:
+                mesh = sp_context()
+                m_l = self.num_heads // shards
+                q, k, v = _split_qkv(self.attn_qkv(x, partial_use=mesh.model_group),
+                                     self.num_heads, slice(mesh.model_rank * m_l,
+                                                           (mesh.model_rank + 1) * m_l))
+            if just_2d:
+                o = _per_frame_attention(q, k, v)
+            elif mode == "train":
+                o = self._train_attention(q, k, v, b, t, hw, frames)
+            else:
+                o = self._eval_attention(q, k, v, cache, frames, b, t, hw)
+                if update_cache:
+                    if cache is None:
+                        shape = (b, self.num_heads, self.max_frames, hw, k.shape[-1])
+                        kbuf = torch.zeros(shape, dtype=torch.int8 if self.quant else k.dtype,
+                                           device=k.device)
+                        vbuf = torch.zeros_like(kbuf)
+                    else:
+                        kbuf, vbuf = cache["k"], cache["v"]
+                    kbuf = ring_write(kbuf, _to_cache_dtype(k, kbuf), frames)
+                    vbuf = ring_write(vbuf, _to_cache_dtype(v, vbuf), frames)
+                    cache = {"k": kbuf, "v": vbuf,
+                             **decode_tables(kbuf, vbuf, frames + t, k.dtype)}
+            y = einops.rearrange(o, "b m t (h w) c -> b t h w (m c)", h=h, w=w)
+            if shards > 1:
+                # every model rank's heads, rank-major = the (m c) order. The
+                # backward takes this rank's heads' slice, which is right because
+                # the gradient arriving here is the same on every model rank:
+                # attn_proj's input passes copy_to_model when its weight is split,
+                # and everything after it is replicated when it is not.
+                y = gather_model(y, sp_context().model_group)
+            y = self.attn_proj(y)
+            return mp_sum(x, y, t=self.attn_balance), cache
 
     def _train_attention(self, q, k, v, b, t, hw, frames):
         """DART attention over the concat of t = 2 t_half frames, at clip
@@ -247,9 +253,10 @@ class FrameAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, cache=None, update_cache: bool = False,
                 frames: int = 0, just_2d: bool = True, mode: str = "eval"):
-        h, w = x.shape[2:4]
-        q, k, v = _split_qkv(self.attn_qkv(x), self.num_heads)
-        o = _per_frame_attention(q, k, v)
-        y = einops.rearrange(o, "b m t (h w) c -> b t h w (m c)", h=h, w=w)
-        y = self.attn_proj(y)
-        return mp_sum(x, y, t=self.attn_balance), cache
+        with span("model.attention", kind="frame", ring_frames=0):
+            h, w = x.shape[2:4]
+            q, k, v = _split_qkv(self.attn_qkv(x), self.num_heads)
+            o = _per_frame_attention(q, k, v)
+            y = einops.rearrange(o, "b m t (h w) c -> b t h w (m c)", h=h, w=w)
+            y = self.attn_proj(y)
+            return mp_sum(x, y, t=self.attn_balance), cache

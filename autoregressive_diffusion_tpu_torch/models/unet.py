@@ -43,6 +43,7 @@ from torch.utils.checkpoint import checkpoint
 from ..ops.flash_attention import sp_context
 from ..ops.fused_conv import fused_decode_block
 from ..ops.numerics import mp_cat, mp_fourier, mp_silu, mp_sum, normalize, resample
+from ..utils.profiling import span
 from .attention import FrameAttention, VideoAttention
 from .layers import Gating, MPConv, MPCausalConv3d
 
@@ -273,6 +274,14 @@ class Block(nn.Module):
         return y, dict(conv_res0=cache0, conv_res1=cache1)
 
 
+def _spanned_block(label, mod, x, emb, c_noise, frames, sub, update_cache, just_2d, mode,
+                   mask):
+    """Block `mod` (UNet attribute `label`) inside its model.block span."""
+    with span("model.block", name=label):
+        return mod(x, emb, c_noise, frames, sub, update_cache, just_2d, mode=mode,
+                   dropout_mask=mask)
+
+
 class UNet(nn.Module):
     """Encoder/decoder (JAX package models/unet.py:380-569)."""
 
@@ -343,31 +352,35 @@ class UNet(nn.Module):
         skips = []
         for side, name, spec in self.layout:
             if side == "out":
-                x, new_cache["out_conv"] = self.out_conv(
-                    x, c_noise, frames, cache.get("out_conv"), update_cache, just_2d,
-                    mode=mode)
+                with span("model.block", name="out_conv"):
+                    x, new_cache["out_conv"] = self.out_conv(
+                        x, c_noise, frames, cache.get("out_conv"), update_cache, just_2d,
+                        mode=mode)
                 continue
-            mod = getattr(self, f"{side}_{name}")
+            label = f"{side}_{name}"
+            mod = getattr(self, label)
             sub = cache.get(side, {}).get(name)
             if side == "dec" and "block" in name:
                 x = mp_cat(x, skips.pop(), t=cfg.concat_balance)
             if spec["kind"] == "conv":
-                x, c = mod(x, c_noise, frames, sub, update_cache, just_2d, mode=mode)
+                with span("model.block", name=label):
+                    x, c = mod(x, c_noise, frames, sub, update_cache, just_2d, mode=mode)
             else:
                 mask = None
                 if drop:
                     shape = (x.shape[0], x.shape[1], spec["res"], spec["res"], spec["cout"])
-                    mask = self.dropout_mask(f"{side}_{name}", shape, x.device,
-                                             dropout_generator)
+                    mask = self.dropout_mask(label, shape, x.device, dropout_generator)
                 if mode == "train" and cfg.remat:
                     # the Block draws no random numbers (its mask is drawn
-                    # above), so there is no RNG state to restore
-                    x, c = checkpoint(mod, x, emb, c_noise, frames, sub, update_cache,
-                                      just_2d, mode, mask, use_reentrant=False,
-                                      preserve_rng_state=False)
+                    # above), so there is no RNG state to restore; its span
+                    # is inside the checkpointed function, so the recompute
+                    # records one too
+                    x, c = checkpoint(_spanned_block, label, mod, x, emb, c_noise, frames,
+                                      sub, update_cache, just_2d, mode, mask,
+                                      use_reentrant=False, preserve_rng_state=False)
                 else:
-                    x, c = mod(x, emb, c_noise, frames, sub, update_cache, just_2d,
-                               mode=mode, dropout_mask=mask)
+                    x, c = _spanned_block(label, mod, x, emb, c_noise, frames, sub,
+                                          update_cache, just_2d, mode, mask)
             new_cache[side][name] = c
             if side == "enc":
                 skips.append(x)
@@ -377,7 +390,9 @@ class UNet(nn.Module):
 class Precond(nn.Module):
     """EDM preconditioner: c_skip = sd^2/(s^2+sd^2), c_out = s*sd/sqrt(s^2+sd^2),
     c_in = 1/sqrt(sd^2+s^2), c_noise = log(s)/4. The body runs in
-    `body_dtype`; the preconditioning stays fp32."""
+    `body_dtype`; the preconditioning stays fp32. Each call is a model.call
+    span (utils/profiling.span) whose `mode` is "cached" (one frame against
+    a cache), "prefill" (any other eval call) or "train"."""
 
     def __init__(self, cfg: UNetConfig, sigma_data: float = 0.5,
                  body_dtype: torch.dtype = torch.float32):
@@ -391,17 +406,20 @@ class Precond(nn.Module):
                 update_cache: bool = False, mode: str = "eval",
                 just_2d: bool = False,
                 dropout_generator: Optional[torch.Generator] = None):
-        x = x.float()
-        sigma = sigma.float()
-        s = sigma[:, :, None, None, None]
-        sd = self.sigma_data
-        c_skip = sd ** 2 / (s ** 2 + sd ** 2)
-        c_out = s * sd / torch.sqrt(s ** 2 + sd ** 2)
-        c_in = 1 / torch.sqrt(sd ** 2 + s ** 2)
-        c_noise = torch.log(sigma) / 4
-        f_x, cache = self.unet((c_in * x).to(self.body_dtype), c_noise, conditioning,
-                               cache, update_cache, just_2d, mode, dropout_generator)
-        return c_skip * x + c_out * f_x.float(), cache
+        call = ("train" if mode == "train" else
+                "cached" if cache is not None and x.shape[1] == 1 else "prefill")
+        with span("model.call", mode=call, update_cache=update_cache):
+            x = x.float()
+            sigma = sigma.float()
+            s = sigma[:, :, None, None, None]
+            sd = self.sigma_data
+            c_skip = sd ** 2 / (s ** 2 + sd ** 2)
+            c_out = s * sd / torch.sqrt(s ** 2 + sd ** 2)
+            c_in = 1 / torch.sqrt(sd ** 2 + s ** 2)
+            c_noise = torch.log(sigma) / 4
+            f_x, cache = self.unet((c_in * x).to(self.body_dtype), c_noise, conditioning,
+                                   cache, update_cache, just_2d, mode, dropout_generator)
+            return c_skip * x + c_out * f_x.float(), cache
 
 
 @torch.no_grad()

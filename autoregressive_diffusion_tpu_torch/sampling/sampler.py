@@ -16,6 +16,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..utils.profiling import span
+
 
 def karras_schedule(num_steps: int, sigma_min: float, sigma_max: float,
                     rho: float) -> np.ndarray:
@@ -40,62 +42,64 @@ def edm_sampler(model, cache, shape, conditioning=None,
 
     `target`, if given, is added to the initial noise and per-step MSEs are
     tracked; the cache is then NOT updated. Noise is drawn from `generator`
-    (on the model's device) only where a step needs it."""
-    dev = next(model.parameters()).device
-    b = shape[0]
-    t_steps = karras_schedule(num_steps, sigma_min, sigma_max, rho)
-    gamma = np.zeros(num_steps, np.float32)
-    if S_churn > 0:
-        g = min(S_churn / num_steps, math.sqrt(2) - 1)
-        sel = (t_steps[:-1] >= S_min) & (t_steps[:-1] <= S_max)
-        gamma[sel] = g
-    t_hats = t_steps[:-1] * (1.0 + gamma)
-    churn_scale = np.sqrt(np.maximum(t_hats ** 2 - t_steps[:-1] ** 2, 0.0)) * S_noise
+    (on the model's device) only where a step needs it. The whole frame is
+    one sampler.frame span (utils/profiling.span)."""
+    with span("sampler.frame"):
+        dev = next(model.parameters()).device
+        b = shape[0]
+        t_steps = karras_schedule(num_steps, sigma_min, sigma_max, rho)
+        gamma = np.zeros(num_steps, np.float32)
+        if S_churn > 0:
+            g = min(S_churn / num_steps, math.sqrt(2) - 1)
+            sel = (t_steps[:-1] >= S_min) & (t_steps[:-1] <= S_max)
+            gamma[sel] = g
+        t_hats = t_steps[:-1] * (1.0 + gamma)
+        churn_scale = np.sqrt(np.maximum(t_hats ** 2 - t_steps[:-1] ** 2, 0.0)) * S_noise
 
-    def noise():
-        return torch.randn(shape, generator=generator, device=dev, dtype=torch.float32)
+        def noise():
+            return torch.randn(shape, generator=generator, device=dev, dtype=torch.float32)
 
-    def denoise(x, t, do_update):
-        sigma = torch.full((b, 1), float(t), dtype=torch.float32, device=dev)
-        d_x, new_cache = model(x, sigma, conditioning, cache=cache,
-                               update_cache=do_update)
-        if guidance != 1.0:
-            ref_dx, _ = model(x, sigma, conditioning, just_2d=True)
-            d_x = ref_dx + (d_x - ref_dx) * guidance
-        return d_x, new_cache
+        def denoise(x, t, do_update):
+            sigma = torch.full((b, 1), float(t), dtype=torch.float32, device=dev)
+            d_x, new_cache = model(x, sigma, conditioning, cache=cache,
+                                   update_cache=do_update)
+            if guidance != 1.0:
+                ref_dx, _ = model(x, sigma, conditioning, just_2d=True)
+                d_x = ref_dx + (d_x - ref_dx) * guidance
+            return d_x, new_cache
 
-    x_next = (noise() * float(t_steps[0]) if x_init is None
-              else x_init.to(device=dev, dtype=torch.float32))
-    if target is not None:
-        x_next = x_next + target.float()
-
-    mses, mses_pred = [], []
-    x_cur = x_next
-    for i in range(num_steps - 1):
-        t_hat, t_next = float(t_hats[i]), float(t_steps[i + 1])
-        x_hat = x_cur + float(churn_scale[i]) * noise() if churn_scale[i] > 0 else x_cur
-        x_pred, _ = denoise(x_hat, t_hat, False)
-        d_cur = (x_hat - x_pred) / t_hat
-        x_nxt = x_hat + (t_next - t_hat) * d_cur
-        x_pred2, _ = denoise(x_nxt, t_next, False)
-        d_prime = (x_nxt - x_pred2) / t_next
-        x_cur = x_hat + (t_next - t_hat) * (0.5 * d_cur + 0.5 * d_prime)
+        x_next = (noise() * float(t_steps[0]) if x_init is None
+                  else x_init.to(device=dev, dtype=torch.float32))
         if target is not None:
-            mses_pred.append(torch.mean((x_pred2 - target) ** 2))
-            mses.append(torch.mean((x_cur - target) ** 2))
+            x_next = x_next + target.float()
 
-    # final step: Euler only; the cache is updated iff there is no target
-    i = num_steps - 1
-    x_hat = x_cur + float(churn_scale[i]) * noise() if churn_scale[i] > 0 else x_cur
-    t_hat = float(t_hats[i])
-    x_pred, cache = denoise(x_hat, t_hat, update_cache and target is None)
-    x_next = x_hat + (0.0 - t_hat) * (x_hat - x_pred) / t_hat
-    if target is not None:
-        mses.append(torch.mean((x_next - target) ** 2))
-        mses_pred.append(torch.mean((x_pred - target) ** 2))
-        return x_next, torch.stack(mses), torch.stack(mses_pred), cache
-    zeros = torch.zeros(num_steps - 1, device=dev)
-    return x_next, zeros, zeros, cache
+        mses, mses_pred = [], []
+        x_cur = x_next
+        for i in range(num_steps - 1):
+            t_hat, t_next = float(t_hats[i]), float(t_steps[i + 1])
+            x_hat = x_cur + float(churn_scale[i]) * noise() if churn_scale[i] > 0 else x_cur
+            x_pred, _ = denoise(x_hat, t_hat, False)
+            d_cur = (x_hat - x_pred) / t_hat
+            x_nxt = x_hat + (t_next - t_hat) * d_cur
+            x_pred2, _ = denoise(x_nxt, t_next, False)
+            d_prime = (x_nxt - x_pred2) / t_next
+            x_cur = x_hat + (t_next - t_hat) * (0.5 * d_cur + 0.5 * d_prime)
+            if target is not None:
+                mses_pred.append(torch.mean((x_pred2 - target) ** 2))
+                mses.append(torch.mean((x_cur - target) ** 2))
+
+        # final step: Euler only; the cache is updated iff there is no target
+        i = num_steps - 1
+        x_hat = x_cur + float(churn_scale[i]) * noise() if churn_scale[i] > 0 else x_cur
+        t_hat = float(t_hats[i])
+        x_pred, cache = denoise(x_hat, t_hat, update_cache and target is None)
+        x_next = x_hat + (0.0 - t_hat) * (x_hat - x_pred) / t_hat
+        if target is not None:
+            mses.append(torch.mean((x_next - target) ** 2))
+            mses_pred.append(torch.mean((x_pred - target) ** 2))
+            return x_next, torch.stack(mses), torch.stack(mses_pred), cache
+        zeros = torch.zeros(num_steps - 1, device=dev)
+        return x_next, zeros, zeros, cache
 
 
 def generate(model, cache, n_frames: int, shape, conditioning=None,

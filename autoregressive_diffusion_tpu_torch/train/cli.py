@@ -36,7 +36,7 @@ import torch
 
 from ..generate import build_model
 from ..parallel import check_replica_consistency, create_mesh, seq_slice
-from ..utils.profiling import kernel_times, window_summary
+from ..utils.profiling import kernel_times, trace, window_summary
 from .loss import EDM2LossConfig
 from .optim import make_optimizer
 from .train_state import create_train_state, make_train_step, step_seed
@@ -136,13 +136,12 @@ def profile_steps(state, train_step, images, cond, steps: int = 2, seed: int = 0
     products and softmax, copies between host and card, optimizer and
     elementwise), and the time inside torch.distributed collectives (the
     gloo or nccl work, waits for the other ranks included), all per step
-    of this process. Writes a Chrome trace if asked."""
-    from torch.profiler import ProfilerActivity, profile
-
+    of this process. Writes a Chrome trace if asked, the program's spans
+    (train.step and its phases, model.call, model.block, model.attention)
+    among its ranges."""
     dev = images.device
-    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
     _sync(dev)
-    with profile(activities=acts) as prof:
+    with trace(None) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             state, m = train_step(state, images, cond, step_seed(seed, state.step))

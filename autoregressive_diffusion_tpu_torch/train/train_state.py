@@ -5,7 +5,10 @@ performs loss, gradients, global-norm clip, AdamW, forced weight renorm and
 the power-function EMA update, optionally accumulating gradients over
 microbatch slices. Where the JAX step is a pure function of an immutable
 state, this one updates the model's parameters, the optimizer state and the
-EMA copies in place and returns the same TrainState object.
+EMA copies in place and returns the same TrainState object. Its spans
+(utils/profiling.span): train.step around the call; train.forward and
+train.backward for each microbatch; train.optimizer (clip + AdamW),
+train.weight_norm and train.ema.
 
 With a mesh (parallel.create_mesh) the step is one rank's part of a
 replica x data x seq x model parallel step: the rank's samples and frames
@@ -34,6 +37,7 @@ import torch
 from ..ops.flash_attention import set_sp_context, sp_context
 from ..parallel.collectives import all_reduce_sum_
 from ..parallel.mesh import all_reduce_grads, gather_batch
+from ..utils.profiling import span
 from .ema import ema_update, init_ema, std_to_exp
 from .loss import EDM2LossConfig, edm2_loss
 from .loss_weight import init_coefs
@@ -92,13 +96,15 @@ def make_train_step(loss_cfg: EDM2LossConfig, tx: ClippedAdamW, batch_size: int,
         loss_sum, unweighted, sigs, lss = 0.0, 0.0, [], []
         for j in range(n):
             sl = slice(j * m, (j + 1) * m)
-            loss, aux = edm2_loss(
-                model, images[sl], seed, loss_cfg,
-                conditioning[sl] if conditioning is not None else None, state.coefs,
-                just_2d, sample_offset=first + j * m,
-                sigma=None if sigma is None else sigma[sl],
-                noise=None if noise is None else noise[sl], mesh=mesh)
-            (loss / n).backward()  # gradients add up in .grad
+            with span("train.forward", microbatch=j):
+                loss, aux = edm2_loss(
+                    model, images[sl], seed, loss_cfg,
+                    conditioning[sl] if conditioning is not None else None, state.coefs,
+                    just_2d, sample_offset=first + j * m,
+                    sigma=None if sigma is None else sigma[sl],
+                    noise=None if noise is None else noise[sl], mesh=mesh)
+            with span("train.backward", microbatch=j):
+                (loss / n).backward()  # gradients add up in .grad
             loss_sum = loss_sum + loss.detach() / n
             unweighted = unweighted + aux["unweighted"] / n
             sigs.append(aux["sigma"])
@@ -124,28 +130,32 @@ def make_train_step(loss_cfg: EDM2LossConfig, tx: ClippedAdamW, batch_size: int,
 
     def train_step(state: TrainState, images, conditioning, seed: int,
                    just_2d: bool = False, sigma=None, noise=None):
-        grads = grads_of if mesh is None else sharded_grads_of
-        loss, aux = grads(state, images, conditioning, seed, just_2d, sigma, noise)
-        params = state.params
-        specs = None
-        if state.specs is not None:
-            name_of = {id(p): n for n, p in params.items()}
-            specs = [state.specs[name_of[id(p)]]
-                     for g in state.opt_state.param_groups for p in g["params"]]
-        grad_norm = tx.update(state.opt_state, state.step, specs, state.mesh)
-        forced_weight_norm(params, state.specs, state.mesh)
+        with span("train.step", just_2d=just_2d):
+            grads = grads_of if mesh is None else sharded_grads_of
+            loss, aux = grads(state, images, conditioning, seed, just_2d, sigma, noise)
+            params = state.params
+            specs = None
+            if state.specs is not None:
+                name_of = {id(p): n for n, p in params.items()}
+                specs = [state.specs[name_of[id(p)]]
+                         for g in state.opt_state.param_groups for p in g["params"]]
+            with span("train.optimizer"):
+                grad_norm = tx.update(state.opt_state, state.step, specs, state.mesh)
+            with span("train.weight_norm"):
+                forced_weight_norm(params, state.specs, state.mesh)
 
-        # power-function EMA
-        step1 = state.step + 1
-        cur_nimg = float(step1) * batch_size
-        for std, e in zip(state.ema_stds, state.ema):
-            gamma = float(std_to_exp(std))
-            beta = (1.0 - batch_size / cur_nimg) ** (gamma + 1.0)
-            ema_update(e, params, beta)
-        state.step = step1
-        metrics = dict(loss=loss, unweighted=aux["unweighted"], sigma=aux["sigma"],
-                       losses=aux["losses"], grad_norm=grad_norm)
-        return state, metrics
+            # power-function EMA
+            step1 = state.step + 1
+            cur_nimg = float(step1) * batch_size
+            with span("train.ema"):
+                for std, e in zip(state.ema_stds, state.ema):
+                    gamma = float(std_to_exp(std))
+                    beta = (1.0 - batch_size / cur_nimg) ** (gamma + 1.0)
+                    ema_update(e, params, beta)
+            state.step = step1
+            metrics = dict(loss=loss, unweighted=aux["unweighted"], sigma=aux["sigma"],
+                           losses=aux["losses"], grad_norm=grad_norm)
+            return state, metrics
 
     return train_step
 

@@ -1,9 +1,12 @@
-"""Profiling and timing: torch.profiler windows, device time by kernel.
+"""Profiling and timing: the program's spans, torch.profiler windows, device time by kernel.
 
 Counterpart of autoregressive_diffusion_tpu/utils/profiling.py:
+  * `span(name, **attrs)`: a span at a layer boundary of the program (the
+    model call, each Block and attention layer, the sampler's frame, the
+    train step's phases); `tracing()` records them in memory, and inside a
+    `trace` window each is also a named range of the profiler's trace;
   * `trace(logdir)`: a torch.profiler window (host and, with a card, device
     activity) written as a Chrome trace into `logdir` on exit;
-  * `annotate(name)`: a named range in the trace (record_function);
   * `top_ops(prof)`: the kernels with the most device time in a window;
   * `benchmark(fn)`: warm-up calls, then the marginal time a call between
     a short and a long run, each ending in torch.cuda.synchronize;
@@ -21,14 +24,123 @@ range), which span the kernels launched inside them.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import os
+import threading
 import time
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 from torch.autograd import DeviceType
 
 LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")
+
+
+class Span(NamedTuple):
+    """One recorded span. Times are time.time_ns(); `thread` is the native
+    id of the thread that opened it; `root` is the id of the outermost span
+    it descends from (its own id for a root): the spans of one frame or one
+    train step share it."""
+    id: int
+    parent: Optional[int]
+    root: int
+    thread: int
+    name: str
+    attrs: dict
+    t0_ns: int
+    t1_ns: int
+
+
+class _Tracer:
+    """The records of one `tracing()` block and the open spans of each thread."""
+
+    def __init__(self):
+        self.records = []
+        self.ids = itertools.count(1)
+        self.open = {}  # native thread id -> [(span id, root id)] of its open spans
+        self.root_thread = None  # the thread whose open spans include a root
+
+    def parent_of(self, thread: int):
+        """(parent id, root id) for a span opened on `thread` now: the
+        innermost span open on that thread; on a thread with none open
+        (autograd's, running a backward or a remat'd Block's recompute), the
+        innermost open on the thread that opened the current root."""
+        stack = self.open.get(thread)
+        if not stack and self.root_thread is not None:
+            stack = self.open.get(self.root_thread)
+        return stack[-1] if stack else (None, None)
+
+
+class _Sink(NamedTuple):
+    tracer: Optional[_Tracer]  # spans are recorded (tracing())
+    annotate: bool             # spans are record_function ranges (trace())
+
+
+_sink: Optional[_Sink] = None  # None: span() returns _NULL
+_NULL = contextlib.nullcontext()
+
+
+class _OpenSpan:
+    __slots__ = ("sink", "name", "attrs", "rf", "sid", "parent", "root", "thread", "t0")
+
+    def __init__(self, sink: _Sink, name: str, attrs: dict):
+        self.sink, self.name, self.attrs = sink, name, attrs
+
+    def __enter__(self):
+        tr = self.sink.tracer
+        if tr is not None:
+            self.thread = threading.get_native_id()
+            self.parent, root = tr.parent_of(self.thread)
+            self.sid = next(tr.ids)
+            self.root = self.sid if root is None else root
+            stack = tr.open.setdefault(self.thread, [])
+            if self.parent is None:
+                tr.root_thread = self.thread
+            stack.append((self.sid, self.root))
+            self.t0 = time.time_ns()
+        if self.sink.annotate:
+            self.rf = torch.profiler.record_function(self.name)
+            self.rf.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        if self.sink.annotate:
+            self.rf.__exit__(*exc)
+        tr = self.sink.tracer
+        if tr is not None:
+            t1 = time.time_ns()
+            tr.open[self.thread].pop()
+            tr.records.append(Span(self.sid, self.parent, self.root, self.thread, self.name,
+                                   self.attrs, self.t0, t1))
+        return False
+
+
+def span(name: str, /, **attrs):
+    """A context manager around one layer boundary of the program. Off (the
+    default) it reads one module global and returns a shared null context:
+    no record, no clock, no synchronise, no launch. Inside `tracing()` it
+    records a `Span` on exit; inside a `trace` window it is also a
+    record_function range named `name`, so the window's Chrome trace shows
+    it."""
+    sink = _sink
+    if sink is None:
+        return _NULL
+    return _OpenSpan(sink, name, attrs)
+
+
+@contextlib.contextmanager
+def tracing():
+    """Record the program's spans in the block: yields the list that each
+    closed span is appended to (`Span`s, in the order they close). The
+    state before the block is restored on exit."""
+    global _sink
+    prev = _sink
+    tracer = _Tracer()
+    _sink = _Sink(tracer, prev is not None and prev.annotate)
+    try:
+        yield tracer.records
+    finally:
+        _sink = prev
 
 
 def event_totals(prof) -> tuple:
@@ -77,23 +189,25 @@ def trace(logdir: Optional[str], name: str = "trace.json", host: bool = True):
     profiler, for `kernel_times`, `top_ops` and `window_summary`. With a
     card, host=False records the card's activity alone (its kernels and the
     runtime's launch calls, no aten ops): a window of 10^5 launches then
-    costs a fraction of the time to record and to sum."""
+    costs a fraction of the time to record and to sum. Inside the window
+    the program's spans are record_function ranges (`span`)."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU] if host or not torch.cuda.is_available() else []
     if torch.cuda.is_available():
         acts.append(ProfilerActivity.CUDA)
+    global _sink
     if logdir is not None:
         os.makedirs(logdir, exist_ok=True)
+    prev = _sink
     with profile(activities=acts) as prof:
-        yield prof
+        _sink = _Sink(prev.tracer if prev is not None else None, True)
+        try:
+            yield prof
+        finally:
+            _sink = prev
     if logdir is not None:
         prof.export_chrome_trace(os.path.join(logdir, name))
-
-
-def annotate(name: str):
-    """A named range in the profiler's trace (torch.profiler.record_function)."""
-    return torch.profiler.record_function(name)
 
 
 def top_ops(prof, n: int = 25) -> list:

@@ -5,8 +5,8 @@ moments against the JAX Collector in one process, and pooled over two gloo
 ranks spawned by parallel.run_local_ranks), utils/plotting.py (the moving
 average and the loss-vs-sigma fit's numbers against the JAX functions, the
 dashboard written), train/ema.traditional_ema_beta (rtol 1e-6: both are
-fp32 host arithmetic) and utils/profiling.py (a trace window, its
-annotation and top kernels, and the benchmark timer)."""
+fp32 host arithmetic) and utils/profiling.py (a trace window, a span as
+its record_function range, its top kernels, and the benchmark timer)."""
 import json
 
 import jax.numpy as jnp
@@ -143,7 +143,7 @@ def test_traditional_ema_beta_equals_jax(args):
 def test_profiling_trace_top_ops_and_benchmark(tmp_path):
     x = torch.randn(64, 64)
     with profiling.trace(str(tmp_path), "t.json") as prof:
-        with profiling.annotate("my_range"):
+        with profiling.span("my_range", kind="x"):  # a record_function range in the window
             (x @ x).sum()
     names = [e.get("name") for e in json.loads((tmp_path / "t.json").read_text())["traceEvents"]]
     assert "my_range" in names and "aten::mm" in names
