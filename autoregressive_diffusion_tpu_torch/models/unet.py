@@ -45,6 +45,7 @@ from ..ops.fused_conv import fused_decode_block
 from ..ops.numerics import mp_cat, mp_fourier, mp_silu, mp_sum, normalize, resample
 from ..utils.profiling import span
 from .attention import FrameAttention, VideoAttention
+from .call_graph import CallGraph
 from .layers import Gating, MPConv, MPCausalConv3d
 
 
@@ -392,7 +393,11 @@ class Precond(nn.Module):
     c_in = 1/sqrt(sd^2+s^2), c_noise = log(s)/4. The body runs in
     `body_dtype`; the preconditioning stays fp32. Each call is a model.call
     span (utils/profiling.span) whose `mode` is "cached" (one frame against
-    a cache), "prefill" (any other eval call) or "train"."""
+    a cache), "prefill" (any other eval call) or "train", and whose `graph`
+    says how it ran: a cached eval call that writes no cache, on the card
+    and without autograd, is recorded as a CUDA graph and replayed
+    ("capture", "replay"; models/call_graph.py); every other call, and the
+    first of new shapes, runs eagerly ("eager")."""
 
     def __init__(self, cfg: UNetConfig, sigma_data: float = 0.5,
                  body_dtype: torch.dtype = torch.float32):
@@ -401,6 +406,7 @@ class Precond(nn.Module):
         self.sigma_data = sigma_data
         self.body_dtype = body_dtype
         self.unet = UNet(cfg)
+        self.call_graph = CallGraph()
 
     def forward(self, x, sigma, conditioning=None, cache=None,
                 update_cache: bool = False, mode: str = "eval",
@@ -408,18 +414,30 @@ class Precond(nn.Module):
                 dropout_generator: Optional[torch.Generator] = None):
         call = ("train" if mode == "train" else
                 "cached" if cache is not None and x.shape[1] == 1 else "prefill")
-        with span("model.call", mode=call, update_cache=update_cache):
-            x = x.float()
-            sigma = sigma.float()
-            s = sigma[:, :, None, None, None]
-            sd = self.sigma_data
-            c_skip = sd ** 2 / (s ** 2 + sd ** 2)
-            c_out = s * sd / torch.sqrt(s ** 2 + sd ** 2)
-            c_in = 1 / torch.sqrt(sd ** 2 + s ** 2)
-            c_noise = torch.log(sigma) / 4
-            f_x, cache = self.unet((c_in * x).to(self.body_dtype), c_noise, conditioning,
-                                   cache, update_cache, just_2d, mode, dropout_generator)
-            return c_skip * x + c_out * f_x.float(), cache
+        plan = self.call_graph.plan(self, x, sigma, conditioning, cache, update_cache, mode,
+                                    just_2d)
+        with span("model.call", mode=call, update_cache=update_cache, graph=plan.kind):
+            if plan.key is None:
+                return self._call(x, sigma, conditioning, cache, update_cache, mode, just_2d,
+                                  dropout_generator)
+
+            def body(x, sigma, conditioning):
+                return self._call(x, sigma, conditioning, cache, False, "eval", False, None)
+            return self.call_graph.run(plan, body, x, sigma, conditioning), cache
+
+    def _call(self, x, sigma, conditioning, cache, update_cache, mode, just_2d,
+              dropout_generator):
+        x = x.float()
+        sigma = sigma.float()
+        s = sigma[:, :, None, None, None]
+        sd = self.sigma_data
+        c_skip = sd ** 2 / (s ** 2 + sd ** 2)
+        c_out = s * sd / torch.sqrt(s ** 2 + sd ** 2)
+        c_in = 1 / torch.sqrt(sd ** 2 + s ** 2)
+        c_noise = torch.log(sigma) / 4
+        f_x, cache = self.unet((c_in * x).to(self.body_dtype), c_noise, conditioning,
+                               cache, update_cache, just_2d, mode, dropout_generator)
+        return c_skip * x + c_out * f_x.float(), cache
 
 
 @torch.no_grad()

@@ -6,26 +6,36 @@ attention outputs do not depend on it.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
+
+
+@functools.lru_cache(maxsize=None)
+def _rope_constants(head_dim: int, device: torch.device):
+    """(inverse frequencies, log of the xPos scale vector), each (head_dim / 2,)
+    fp32 on `device`: made once per head size and device, so that a call
+    copies nothing from the host (a CUDA graph cannot capture such a copy)."""
+    inv_freq = torch.as_tensor(
+        1.0 / (10000.0 ** (np.arange(0, head_dim, 2) / head_dim)),
+        dtype=torch.float32, device=device)
+    scale_vec = torch.as_tensor(
+        (np.arange(0, head_dim, 2) + 0.4 * head_dim) / (1.4 * head_dim),
+        dtype=torch.float32, device=device)
+    return inv_freq, torch.log(scale_vec)
 
 
 def rope_tables(head_dim: int, positions: torch.Tensor, center,
                 scale_base: float = 64.0):
     """cos, sin and xPos scale tables, each (P, head_dim) fp32, for the
     absolute frame `positions` (P,)."""
-    dev = positions.device
-    inv_freq = torch.as_tensor(
-        1.0 / (10000.0 ** (np.arange(0, head_dim, 2) / head_dim)),
-        dtype=torch.float32, device=dev)
+    inv_freq, log_scale_vec = _rope_constants(head_dim, positions.device)
     pos = positions.float()
     freqs = pos[:, None] * inv_freq[None, :]
     freqs = torch.cat([freqs, freqs], dim=-1)
-    scale_vec = torch.as_tensor(
-        (np.arange(0, head_dim, 2) + 0.4 * head_dim) / (1.4 * head_dim),
-        dtype=torch.float32, device=dev)
     power = (pos - float(center)) / scale_base
-    scale = torch.exp(power[:, None] * torch.log(scale_vec)[None, :])
+    scale = torch.exp(power[:, None] * log_scale_vec[None, :])
     scale = torch.cat([scale, scale], dim=-1)
     return torch.cos(freqs), torch.sin(freqs), scale
 

@@ -45,7 +45,13 @@ Phases, each of which fails the run with a non-zero exit:
      frames (64 Heun steps, rho=2, sigma in [0.4, 80]) and re-primes 2
      frames at offset 10, with both kernels' launch counters zeroed before
      and read after; the counts must be 6 per prefill call for the
-     attention kernel and 17 per denoiser call for the decode Block;
+     attention kernel and 17 per denoiser call that ran its Python for the
+     decode Block (a cached call replayed as a CUDA graph runs none, and
+     the model.call spans count the replays: here and in every phase that
+     holds a rollout's launches, the wrappers' counts are held to the
+     calls that were not replays); then four cached calls under the
+     profiler, whose device trace must show the decode Block's 3 kernels
+     a Block in every call, replays included;
   6. the train-mode fused gated conv, forward and backward kernels, against
      their plain version (out, dx, dw2, dw3, dcvec, dgates) in fp32 (SIMT
      kernels) and bf16 (tensor cores; run twice, bit for bit) at every
@@ -110,7 +116,7 @@ Phases, each of which fails the run with a non-zero exit:
      each step's launches held to twice a batch-8 step's (phase 7), the
      dashboard at step 4 (coefs refitted, finite and changed; the sampler
      callback's 315 denoiser calls and 2 prefills held to 17 Blocks a call
-     and 6 prefill launches a prefill; the rollout decoded to a PNG; the
+     not replayed and 6 prefill launches a prefill; the rollout decoded to a PNG; the
      model left in training mode), checkpoints at steps 4 and 8; (c) four
      steps, a refit and a save, a restore into a freshly built trainer and
      four more steps against eight straight steps: every leaf of the train
@@ -137,7 +143,8 @@ Phases, each of which fails the run with a non-zero exit:
      with 17 decode-Block launches in each T=1 call; (d), (e) cs_eval_suite
      on (b)'s checkpoint: context_probe's real and scrambled losses finite,
      cs_rollout's 2 clips of 4 context and 2 generated frames (32 steps)
-     with 17 Blocks a denoiser call and 6 prefill launches a prefill, MSE
+     with 17 Blocks a denoiser call not replayed and 6 prefill launches a
+     prefill, MSE
      finite, a uint8 PNG; then the cached denoiser call timed and profiled.
      Its launches join the kernels line.
  12. VAE training (gym_vae_train, cs_vae_train, cs_vae_adversarial,
@@ -173,7 +180,8 @@ Phases, each of which fails the run with a non-zero exit:
      forward again), step ms and peak MB of 3 steps each; (c)
      rollout_drift on the r3 weights and the trained VAE over the committed
      episode 0 for 4 frames: the series finite and in drift.npz, 17 decode
-     Blocks a denoiser call, 6 prefill launches a prefill. Its launches join
+     Blocks a denoiser call not replayed, 6 prefill launches a prefill. Its
+     launches join
      the kernels line.
  14. tensor parallelism, FSDP and the replica axis (parallel/mesh.py), the
      ranks spawned on this card under gloo: (a) the train-mode fused conv
@@ -645,25 +653,64 @@ def e2e_phase(make, init_cache, label, ctx_frames):
 
 # phase 5 (and 9 (b), (c)): the main path
 
-def serve_phase(rollout, fa, fc, cfg, n_blocks, model, label, bench_iters):
+# The decode Block's kernels: three stages a Block, launched back to back
+# (csrc/decode_block.cu; perf_bench/costs.py names the same kernels).
+DECODE_BLOCK_KERNELS = ("decode_block_tc", "decode_prologue_kernel", "decode_conv_kernel")
+DECODE_BLOCK_STAGES = 3
+
+
+def call_kinds(spans) -> dict:
+    """{"cached": n, "replay": n, "model": n} of the model.call spans: the
+    cached calls (one frame against a cache), those of them replayed as a
+    CUDA graph (models/call_graph.py), and every model call. A replay runs
+    no Python, so the ops wrappers count none of its launches: they count
+    the calls that ran eagerly or were recorded."""
+    calls = [sp for sp in spans if sp.name == "model.call"]
+    return {"cached": sum(sp.attrs["mode"] == "cached" for sp in calls),
+            "replay": sum(sp.attrs.get("graph") == "replay" for sp in calls),
+            "model": len(calls)}
+
+
+def decode_block_kernels(prof) -> int:
+    """The decode-Block kernels the card ran in a profiled window, from the
+    device trace (CUPTI reports every kernel of a replayed graph)."""
+    from torch.autograd import DeviceType
+    return sum(1 for e in prof.profiler.kineto_results.events()
+               if e.device_type() != DeviceType.CPU
+               and any(k in e.name() for k in DECODE_BLOCK_KERNELS))
+
+
+def serve_phase(rollout, fa, fc, cfg, n_blocks, model, label, bench_iters, window_calls=4):
     """The rollout on `model` (bf16 body): prefill 8 context frames into a
     fresh cache, `bench_iters` timed cached calls, generate 2 frames (64
     Heun steps, rho=2, sigma in [0.4, 80]), re-prime 2 frames at offset 10,
-    with every launch counter zeroed before and read after. The counts must
-    be 6 per prefill call for the prefill attention, 17 per denoiser call
-    for the decode Block and 5 per model call for the frame layers' flash
-    forward."""
+    with every launch counter zeroed before and read after and the
+    program's spans recorded. The spans count the cached calls (each one
+    the arithmetic expects) and those replayed as a CUDA graph; the
+    wrappers' counts are held to the calls that ran their Python: 6 per
+    prefill call for the prefill attention, 17 per cached call that was
+    not a replay for the decode Block, and 5 per model call that was not a
+    replay for the frame layers' flash forward. Then `window_calls` cached
+    calls more on the rollout's cache under the profiler (the first
+    records, the others replay): the card's decode-Block kernels in the
+    device trace are held to 3 a Block of every call, replays included,
+    and the wrapper to 17 for the recorded call alone."""
+    from autoregressive_diffusion_tpu_torch.utils import profiling
+
     n_weights = sum(t.numel() for t in list(model.parameters()) + list(model.buffers()))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     n_gen, n_steps = 2, 64
     fa.launches = fc.launches = 0
     zero_flash_counts(fa)
-    out = rollout(model, context_frames=8, gen_frames=n_gen, num_steps=n_steps,
-                  sigma_max=80.0, sigma_min=0.4, rho=2.0, reprime_frames=2,
-                  bench_iters=bench_iters, seed=0)
+    with profiling.tracing() as spans:
+        out = rollout(model, context_frames=8, gen_frames=n_gen, num_steps=n_steps,
+                      sigma_max=80.0, sigma_min=0.4, rho=2.0, reprime_frames=2,
+                      bench_iters=bench_iters, seed=0)
     torch.cuda.synchronize()
     counts = dict(prefill=fa.launches, block=fc.launches, flash=flash_counts(fa))
+    kinds = call_kinds(spans)
+    del spans
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
     frames = out["frames"]
     denoiser_calls = 1 + bench_iters + n_gen * (2 * n_steps - 1)
@@ -672,27 +719,59 @@ def serve_phase(rollout, fa, fc, cfg, n_blocks, model, label, bench_iters):
     n_frame = sum(1 for _, _, sp in cfg.block_layout()
                   if sp.get("attention") == "frame" and cfg.num_heads(sp))
     model_calls = denoiser_calls + 2  # and the prefill and the re-prime
-    want = dict(prefill=n_video * 2, block=n_blocks * denoiser_calls,  # gym: 6 and 17
-                flash=(0, 0, n_frame * model_calls, 0))
+    replays = kinds["replay"]
+    want = dict(prefill=n_video * 2, block=n_blocks * (denoiser_calls - replays),  # gym: 6, 17
+                flash=(0, 0, n_frame * (model_calls - replays), 0))
+    want_kinds = dict(cached=denoiser_calls, model=model_calls)
     finite = bool(torch.isfinite(frames).all())
     log(f"# rollout {label}: {n_weights / 1e6:.1f}M weights, bf16 body, frames "
         f"{tuple(frames.shape)} finite={finite} cache frames={out['cache']['frames']} "
         f"prefill_s={out['prefill_s']:.4f} decode_ms_per_call={out['decode_ms_per_call']:.3f} "
         f"rollout_frames_per_sec={out['rollout_frames_per_sec']:.4f} "
         f"reprime_s={out['reprime_s']:.4f} peak_mem_mb={peak_mb:.1f}")
+    log(f"# calls {label}: {kinds} (want cached and model {want_kinds}, replays > 0): "
+        f"{replays} cached calls replayed as a CUDA graph, "
+        f"{denoiser_calls - replays} ran their Python")
     log(f"# launches {label}: prefill attention {counts['prefill']} (want {want['prefill']}), "
         f"decode block {counts['block']} (want {want['block']} = {n_blocks} x "
-        f"{denoiser_calls} calls), flash dart fwd/bwd, full fwd/bwd {counts['flash']} (want "
-        f"{want['flash']}: {n_frame} frame layers x {model_calls} model calls)")
-    failures = []
+        f"{denoiser_calls - replays} calls not replayed), flash dart fwd/bwd, full fwd/bwd "
+        f"{counts['flash']} (want {want['flash']}: {n_frame} frame layers x "
+        f"{model_calls - replays} model calls not replayed)")
+
+    # the profiled window: the device trace counts what a replay runs
     res, ch = cfg.img_resolution, cfg.img_channels
+    g = torch.Generator(device=DEV).manual_seed(5)
+    x = torch.randn((1, 1, res, res, ch), generator=g, device=DEV)
+    s1 = torch.ones((1, 1), device=DEV)
+    c1 = torch.zeros((1, 1), dtype=torch.long, device=DEV)
+    fc.launches = 0
+    with torch.no_grad(), profiling.trace(None, host=False) as prof, \
+            profiling.tracing() as spans:
+        for _ in range(window_calls):
+            x = model(x, s1, c1, cache=out["cache"])[0]
+        torch.cuda.synchronize()
+    window = dict(kinds=call_kinds(spans), block=fc.launches, kernels=decode_block_kernels(prof))
+    del prof, spans
+    want_window = dict(kinds=dict(cached=window_calls, replay=window_calls - 1,
+                                  model=window_calls),
+                       block=n_blocks, kernels=DECODE_BLOCK_STAGES * n_blocks * window_calls)
+    log(f"# replays {label}: {window_calls} cached calls on the rollout's cache under the "
+        f"profiler: {window['kinds']}, decode block wrapper launches {window['block']}, "
+        f"decode-Block kernels in the device trace {window['kernels']} (want "
+        f"{want_window['kernels']} = {DECODE_BLOCK_STAGES} stages x {n_blocks} Blocks x "
+        f"{window_calls} calls; wrapper {n_blocks}, the recorded call's)")
+    failures = []
     if not finite or tuple(frames.shape) != (1, n_gen, res, res, ch):
         failures.append(f"rollout output ({label})")
     if out["cache"]["frames"] != 12:
         failures.append(f"cache frame counter {out['cache']['frames']} != 12 ({label})")
     if counts != want:
         failures.append(f"launch counts ({label})")
-    return dict(out=out, counts=counts, want=want, peak_mb=peak_mb,
+    if {k: kinds[k] for k in want_kinds} != want_kinds or not replays:
+        failures.append(f"cached calls {kinds} ({label})")
+    if window != want_window or not bool(torch.isfinite(x).all()):
+        failures.append(f"replayed calls' kernels {window} != {want_window} ({label})")
+    return dict(out=out, counts=counts, want=want, kinds=kinds, window=window, peak_mb=peak_mb,
                 denoiser_calls=denoiser_calls, failures=failures)
 
 
@@ -866,7 +945,8 @@ def trained_phase(rollout, fa, fc, cfg, shapes, init_cache):
         failures.append("decode block on int8 weights")
     summary.update(int8_rel=rel, int8_std_rel=std_rel, int8_breakdown=breakdown,
                    int8_blocks=blocks,
-                   runs={k: dict(counts=v["counts"], want=v["want"], peak_mb=v["peak_mb"],
+                   runs={k: dict(counts=v["counts"], want=v["want"], kinds=v["kinds"],
+                                 window=v["window"], peak_mb=v["peak_mb"],
                                  **{n: v["out"][n] for n in ("prefill_s", "decode_ms_per_call",
                                                              "rollout_frames_per_sec",
                                                              "generate_s", "reprime_s")})
@@ -1527,8 +1607,10 @@ TOL_RESUME = 1e-6   # max |diff| / max |leaf| where a resumed run is not bit for
 
 
 def htod_bytes(fn):
-    """(result of fn(), host-to-card bytes, copies, kernels) of one call of
-    fn, from a torch.profiler trace of the card's activity."""
+    """(result of fn(), host-to-card bytes, copies, kernels, memcpy calls)
+    of one call of fn, from a torch.profiler trace of the card's activity;
+    memcpy calls are the host's cudaMemcpy* runtime calls, which the trace
+    keeps even where it shows no copy on the card."""
     import tempfile
     from torch.profiler import ProfilerActivity, profile
 
@@ -1542,7 +1624,10 @@ def htod_bytes(fn):
         events = json.loads(path.read_text()).get("traceEvents", [])
     copies = [e for e in events if "HtoD" in str(e.get("name", ""))]
     kernels = sum(e.get("cat") == "kernel" for e in events)
-    return out, sum(int(e.get("args", {}).get("bytes", 0)) for e in copies), len(copies), kernels
+    calls = sum(e.get("cat") == "cuda_runtime" and str(e.get("name", "")).startswith("cudaMemcpy")
+                for e in events)
+    return (out, sum(int(e.get("args", {}).get("bytes", 0)) for e in copies), len(copies),
+            kernels, calls)
 
 
 def np_bf16_bits(x):
@@ -1605,6 +1690,7 @@ def gym_phase(fa, fc, n_blocks, frame_size=GYM_FRAME, extra_args=()):
     from autoregressive_diffusion_tpu_torch.utils import (load_model, restore_train_state,
                                                           save_train_state, train_state_tree,
                                                           vae_from_bundle)
+    from autoregressive_diffusion_tpu_torch.utils import profiling
 
     failures, summary = [], {}
     work = ROOT / "build" / f"gym_phase_{int(time.time() * 1e3)}"
@@ -1680,10 +1766,11 @@ def gym_phase(fa, fc, n_blocks, frame_size=GYM_FRAME, extra_args=()):
         def dashboard(i, latents):
             torch.cuda.synchronize()
             c0, t0 = counts(), time.perf_counter()
-            out = orig_dashboard(i, latents)
+            with profiling.tracing() as spans:
+                out = orig_dashboard(i, latents)
             torch.cuda.synchronize()
             dash.update(out, step=i, seconds=time.perf_counter() - t0, launches=delta(c0),
-                        coefs=tr.state.coefs.detach().cpu().clone())
+                        kinds=call_kinds(spans), coefs=tr.state.coefs.detach().cpu().clone())
             mark["t"], mark["c"] = time.perf_counter(), counts()
             return out
 
@@ -1735,23 +1822,29 @@ def gym_phase(fa, fc, n_blocks, frame_size=GYM_FRAME, extra_args=()):
         if not lr_ok or len(tr.losses) != 8:
             failures.append("gym loop: learning rates or loss history")
         cb_calls = (2 * 32 - 1) * 5  # the MSE probe and four rollout frames, 32 steps each
-        want_dash = dict(block=n_blocks * cb_calls, prefill=2 * n_video,
-                         full_fwd=n_frame * (cb_calls + 2))
+        kinds = dash.get("kinds", {})
+        replays = kinds.get("replay", 0)  # cached calls replayed as a CUDA graph: no wrapper ran
+        want_dash = dict(block=n_blocks * (cb_calls - replays), prefill=2 * n_video,
+                         full_fwd=n_frame * (cb_calls + 2 - replays))
         got_dash = {k: dash.get("launches", {}).get(k) for k in want_dash}
+        kinds_ok = (kinds.get("cached"), kinds.get("model")) == (cb_calls, cb_calls + 2) \
+            and replays > 0
         coefs = dash.get("coefs", coefs0.cpu())
         coefs_ok = bool(torch.isfinite(coefs).all()) and not torch.equal(coefs, coefs0.cpu())
         png = Path(dash.get("png", img / "none.png"))
         png_ok = png.exists() and png.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
         mse = dash.get("mse_steps", np.zeros(0))
         log(f"# gym dashboard at step {dash.get('step')}: {dash.get('seconds', 0):.2f} s, "
-            f"launches {got_dash} (want {want_dash}: {n_blocks} Blocks x {cb_calls} calls, "
-            f"{n_video} video layers x 2 prefills, {n_frame} frame layers x {cb_calls + 2} "
-            f"model calls), coefs finite and refitted {coefs_ok} "
+            f"model calls {kinds} (want {cb_calls} cached of {cb_calls + 2}, replays > 0), "
+            f"launches {got_dash} (want {want_dash}: {n_blocks} Blocks x "
+            f"{cb_calls - replays} cached calls not replayed, {n_video} video layers x 2 "
+            f"prefills, {n_frame} frame layers x {cb_calls + 2 - replays} model calls not "
+            f"replayed), coefs finite and refitted {coefs_ok} "
             f"({coefs.reshape(-1).numpy().round(4).tolist()}), mse_steps first/last "
             f"{float(mse[0]) if len(mse) else None}/{float(mse[-1]) if len(mse) else None} "
             f"({len(mse)} steps), png {png.name} {png.stat().st_size if png_ok else 0} B "
             f"training mode kept {model.training}")
-        if got_dash != want_dash or not coefs_ok or not png_ok or len(mse) != 32 \
+        if got_dash != want_dash or not kinds_ok or not coefs_ok or not png_ok or len(mse) != 32 \
                 or not np.isfinite(mse).all() or not model.training:
             failures.append("gym dashboard")
         sizes = {p.name: sum(f.stat().st_size for f in p.iterdir()) / 2 ** 20
@@ -1845,9 +1938,10 @@ def gym_phase(fa, fc, n_blocks, frame_size=GYM_FRAME, extra_args=()):
         def replay_fn(state, bz, ba, idx, seed, just_2d=False):
             if idx.shape[0] < 3:
                 return orig_fn(state, bz, ba, idx, seed, just_2d)
-            out, nbytes, n, kernels = htod_bytes(lambda: orig_fn(state, bz, ba, idx, seed,
-                                                                 just_2d))
-            copies.update(bytes=nbytes, copies=n, kernels=kernels, idx_bytes=idx.nbytes)
+            out, nbytes, n, kernels, calls = htod_bytes(lambda: orig_fn(state, bz, ba, idx, seed,
+                                                                        just_2d))
+            copies.update(bytes=nbytes, copies=n, kernels=kernels, memcpy_calls=calls,
+                          idx_bytes=idx.nbytes)
             return out
 
         def on_dispatch(i, g, m):
@@ -1868,7 +1962,7 @@ def gym_phase(fa, fc, n_blocks, frame_size=GYM_FRAME, extra_args=()):
             f"the 3-step dispatch copied {copies.get('bytes')} B host to card in "
             f"{copies.get('copies')} copies (index matrix {copies.get('idx_bytes')} B; one "
             f"batch of latents {batch_bytes} B; held < 1% of it) beside {copies.get('kernels')} "
-            f"kernels ok={ok}")
+            f"kernels and {copies.get('memcpy_calls')} cudaMemcpy calls on the host ok={ok}")
         if not ok:
             failures.append("gym replay on the card")
         summary.update(replay=dict(dispatches=dispatches, copies=copies, seconds=replay_s))
@@ -2045,6 +2139,7 @@ def cs_phase(fa, fc, model_channels=128, n_clips=8, clip_frames=CS_CLIP_FRAMES,
     from autoregressive_diffusion_tpu_torch.models.vae import encode_long_sequence
     from autoregressive_diffusion_tpu_torch.train.cli import profile_steps
     from autoregressive_diffusion_tpu_torch.utils import vae_from_bundle
+    from autoregressive_diffusion_tpu_torch.utils import profiling
 
     failures, summary = [], {}
     t_phase = time.perf_counter()
@@ -2245,7 +2340,7 @@ def cs_phase(fa, fc, model_channels=128, n_clips=8, clip_frames=CS_CLIP_FRAMES,
                                           "--model-channels", str(model_channels)])
         c_eval = counts()
         t0 = time.perf_counter()
-        with contextlib.redirect_stdout(io.StringIO()) as text:
+        with contextlib.redirect_stdout(io.StringIO()) as text, profiling.tracing() as spans:
             res_ = cs_eval_suite.run(model, eargs)
         torch.cuda.synchronize()
         eval_s = time.perf_counter() - t0
@@ -2257,13 +2352,17 @@ def cs_phase(fa, fc, model_channels=128, n_clips=8, clip_frames=CS_CLIP_FRAMES,
         n_loss = 2 * min(4, n_win // 8)  # real and scrambled a probe batch
         calls = roll["clips"] * eargs.frames * (2 * 32 - 1)  # denoiser calls, 32 steps
         model_calls = calls + roll["clips"]  # and a prefill a clip
-        want = dict(conv_fwd=n_loss * n_convs, conv_bwd=0, block=n_blocks * calls,
+        kinds = call_kinds(spans)
+        del spans
+        replays = kinds["replay"]  # cached calls replayed as a CUDA graph: no wrapper ran
+        want = dict(conv_fwd=n_loss * n_convs, conv_bwd=0, block=n_blocks * (calls - replays),
                     prefill=n_video * roll["clips"], dart_fwd=n_loss * n_video, dart_bwd=0,
-                    full_fwd=n_loss * n_frame + n_frame * model_calls, full_bwd=0)
+                    full_fwd=n_loss * n_frame + n_frame * (model_calls - replays), full_bwd=0)
         png = Path(roll["strip"] or out_dir / "none.png")
         png_ok = png.exists() and png.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
         losses = np.asarray(probe["real"] + probe["scrambled"])
-        ok = (d_eval == want and np.isfinite(losses).all() and len(losses) == n_loss
+        ok = (d_eval == want and kinds["cached"] == calls and replays > 0
+              and np.isfinite(losses).all() and len(losses) == n_loss
               and np.isfinite(roll["mse"]).all() and png_ok)
         log(f"# cs eval: restore {restore_s:.2f} s (host peak {peak.mb:.0f} MB resident), "
             f"probe + rollout {eval_s:.2f} s; probe real {probe['real']} scrambled "
@@ -2271,7 +2370,8 @@ def cs_phase(fa, fc, model_channels=128, n_clips=8, clip_frames=CS_CLIP_FRAMES,
             f"persistence {roll['persistence']} ({roll['clips']} clips, 4 context + "
             f"{eargs.frames} frames, {calls} denoiser calls, "
             f"{eval_s * 1e3 / max(calls, 1):.1f} ms a call with the probe and the sampler), "
-            f"png {png.stat().st_size if png_ok else 0} B; launches {d_eval} (want {want}) "
+            f"png {png.stat().st_size if png_ok else 0} B; model calls {kinds} (want {calls} "
+            f"cached, replays > 0); launches {d_eval} (want {want}: the calls not replayed) "
             f"ok={ok}")
         if not ok:
             failures.append("cs eval suite: launches, losses, MSE or the PNG")
@@ -2912,8 +3012,8 @@ def ref_drift_phase(fa, fc, build_trainer, synthetic_batch, run_steps, edm2_loss
     kernels' launches counted; (b) dropout_remat_check at full width; (c)
     rollout_drift on the r3 weights and the trained VAE over the committed
     episode 0 for drift_frames frames, every launch counter zeroed before
-    and read after (17 decode Blocks a denoiser call, 6 prefill launches a
-    prefill), the series finite and in drift.npz. Returns (failures,
+    and read after (17 decode Blocks a denoiser call not replayed as a CUDA
+    graph, 6 prefill launches a prefill), the series finite and in drift.npz. Returns (failures,
     summary, launches)."""
     import contextlib
     import io
@@ -2921,6 +3021,7 @@ def ref_drift_phase(fa, fc, build_trainer, synthetic_batch, run_steps, edm2_loss
     from autoregressive_diffusion_tpu_torch import rollout_drift
     from autoregressive_diffusion_tpu_torch.models import UNetConfig
     from autoregressive_diffusion_tpu_torch.utils import load_model
+    from autoregressive_diffusion_tpu_torch.utils import profiling
 
     failures, summary = [], {}
     t_phase = time.perf_counter()
@@ -2984,7 +3085,7 @@ def ref_drift_phase(fa, fc, build_trainer, synthetic_batch, run_steps, edm2_loss
     zero_phase_counts(fa, fc)
     buf = io.StringIO()
     try:
-        with contextlib.redirect_stdout(buf):
+        with contextlib.redirect_stdout(buf), profiling.tracing() as spans:
             res = rollout_drift.main(["--unet", str(ROOT / unet), "--vae", str(ROOT / VAE_BUNDLE),
                                       "--episodes-file", str(ROOT / EPISODES), "--episodes", "1",
                                       "--frames", str(drift_frames), "--out", str(out),
@@ -3003,10 +3104,14 @@ def ref_drift_phase(fa, fc, build_trainer, synthetic_batch, run_steps, edm2_loss
         n_blocks = len(decode_block_shapes(cfg))  # r3: 17
         n_video = sum(1 for _, _, sp in cfg.block_layout()  # r3: 6
                       if sp.get("attention") == "video" and cfg.num_heads(sp))
-        want_block, want_prefill = n_blocks * calls, n_video
+        kinds = call_kinds(spans)
+        del spans
+        replays = kinds["replay"]  # cached calls replayed as a CUDA graph: no wrapper ran
+        want_block, want_prefill = n_blocks * (calls - replays), n_video
+        log(f"# drift calls: {kinds} (want {calls} cached, replays > 0)")
         log(f"# drift launches: decode block {c['block']} (want {want_block} = {n_blocks} x "
-            f"{calls} "
-            f"denoiser calls), prefill {c['prefill']} (want {want_prefill}), full fwd "
+            f"{calls - replays} "
+            f"denoiser calls not replayed), prefill {c['prefill']} (want {want_prefill}), full fwd "
             f"{c['full_fwd']}; {time.perf_counter() - t0:.1f} s, "
             f"{res['episode_seconds'][0] / calls * 1e3:.1f} ms a denoiser call with the "
             f"encode and decode")
@@ -3018,12 +3123,14 @@ def ref_drift_phase(fa, fc, build_trainer, synthetic_batch, run_steps, edm2_loss
             failures.append(f"drift.npz keys {keys}")
         if not finite or shapes != {(drift_frames,)}:
             failures.append(f"drift series not finite or of shape {shapes}")
+        if kinds["cached"] != calls or not replays:
+            failures.append(f"drift cached calls {kinds}, want {calls} with replays")
         if (c["block"], c["prefill"]) != (want_block, want_prefill):
             failures.append(f"drift launches block {c['block']} prefill {c['prefill']} != "
                             f"{want_block}, {want_prefill}")
         summary["drift"] = dict(series={k: v.tolist() for k, v in res["series"].items()},
                                 summary=res["summary"], seconds=res["episode_seconds"],
-                                launches=c, denoiser_calls=calls)
+                                launches=c, denoiser_calls=calls, kinds=kinds)
     finally:
         shutil.rmtree(out, ignore_errors=True)
     summary["seconds"] = time.perf_counter() - t_phase

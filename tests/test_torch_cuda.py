@@ -864,3 +864,107 @@ def test_remat_gradients_equal_plain_on_the_card(cuda, dtype):
                             2 * counts[False][2])
     for n, g in grads[False].items():
         assert float((grads[True][n] - g).abs().max()) <= 1e-6 * float(g.abs().max()), n
+
+
+GRAPH_MODELS = {  # the served widths at batch 2 (the CS fields as chip_smoke.cs_model_config)
+    "gym": {}, "gym_int8": {},
+    "cs": dict(img_resolution=32, img_channels=8, label_dim=4, model_channels=128,
+               channel_mult=(1, 2, 4, 4), num_blocks=2, video_attn_resolutions=(4,),
+               frame_attn_resolutions=(8,), max_frames=64)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", sorted(GRAPH_MODELS))
+def test_cached_call_graph_replays_the_eager_call_bit_for_bit(cuda, kind):
+    """The cached call as a CUDA graph (models/call_graph.py) at the gym and
+    CS widths in bf16 and the gym model under int8 decode weights, batch 2,
+    over three frame steps from a ring of 63 frames across its wrap: every
+    call's output equals the eager call's bit for bit and survives the next
+    calls; a call records once a frame step (the first call of a shape
+    set runs eagerly) and replays after; the frame counter, a weight
+    changed in place, a cache tensor and an input's shapes each record
+    again; the decode-Block launch counter counts the Blocks of the calls
+    that ran their Python (eager and recorded), and the profiler sees a
+    replay's kernels, as the eager call's; a prefill into a new cache drops
+    the graph and frees the cache it held."""
+    import gc
+    import weakref
+    from collections import Counter
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from autoregressive_diffusion_tpu_torch.generate import build_model, int8_model
+    from autoregressive_diffusion_tpu_torch.models import init_cache
+    from autoregressive_diffusion_tpu_torch.utils import profiling
+
+    model = build_model(cuda, torch.bfloat16, 3, **GRAPH_MODELS[kind])
+    if kind.endswith("int8"):
+        model = int8_model(model)
+    cfg, b = model.cfg, 2
+    shape = (b, 1, cfg.img_resolution, cfg.img_resolution, cfg.img_channels)
+    g = torch.Generator(device=cuda).manual_seed(4)
+    cache = init_cache(model, b, device=cuda)
+    with torch.no_grad():
+        for j in range(0, 63, 8):
+            t = min(8, 63 - j)
+            ctx = torch.randn((b, t) + shape[2:], generator=g, device=cuda)
+            _, cache = model(ctx, torch.full((b, t), 0.05, device=cuda), None, cache=cache,
+                             update_cache=True)
+
+    def draw():
+        return (torch.randn(shape, generator=g, device=cuda) * 3,
+                torch.rand((b, 1), generator=g, device=cuda) * 10 + 0.1,
+                torch.randint(0, 4, (b, 1), generator=g, device=cuda))
+
+    def call(cache, x, s, c):
+        with torch.no_grad():
+            with profiling.tracing() as records:
+                before = fc.launches
+                y, out_cache = model(x, s, c, cache=cache)
+                n = fc.launches - before
+            want = model._call(x, s, c, cache, False, "eval", False, None)[0]
+        torch.cuda.synchronize()
+        graph = records[-1].attrs["graph"]  # model.call closes last
+        assert torch.equal(y, want), (kind, graph, float((y - want).abs().max()))
+        assert out_cache is cache or graph == "eager"
+        return graph, n, y, want
+
+    n_blocks = sum(sp["kind"] == "block" and not sp["attention"]
+                   for _, _, sp in cfg.block_layout())
+    for step in range(3):
+        got = [call(cache, *draw()) for _ in range(4)]
+        assert [k for k, *_ in got] == (["eager"] if step == 0 else ["capture"]) + [
+            "capture" if step == 0 else "replay"] + ["replay"] * 2
+        assert all(n == (0 if k == "replay" else n_blocks) for k, n, _, _ in got)
+        assert all(torch.equal(y, w) for _, _, y, w in got)  # no later call wrote them
+        with torch.no_grad():
+            _, cache = model(*draw(), cache=cache, update_cache=True)
+    assert cache["frames"] == 66
+    x, s, c = draw()
+    with torch.no_grad():
+        model.unet.out_gain.mul_(0.5)
+    assert [call(cache, x, s, c)[0] for _ in range(2)] == ["capture", "replay"]
+    leaf = dict(cache, out_conv={"act": cache["out_conv"]["act"] * 0.5})
+    assert [call(leaf, x, s, c)[0] for _ in range(2)] == ["capture", "replay"]
+    assert [call(leaf, x, s, None)[0] for _ in range(3)] == ["eager", "capture", "replay"]
+
+    def kernels(fn):
+        with torch.no_grad(), profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return Counter(e.name() for e in prof.profiler.kineto_results.events()
+                       if "decode_block" in e.name() and e.device_type() != DeviceType.CPU)
+
+    replayed = kernels(lambda: model(x, s, None, cache=leaf))
+    eager = kernels(lambda: model._call(x, s, None, leaf, False, "eval", False, None))
+    assert sum(eager.values()) >= n_blocks and replayed == eager
+    held = [weakref.ref(t) for t in model.call_graph.live.held[0]]
+    del leaf, cache
+    gc.collect()
+    assert all(r() is not None for r in held)
+    with torch.no_grad():
+        model(ctx[:, :2], torch.full((b, 2), 0.05, device=cuda), None,
+              cache=init_cache(model, b, device=cuda), update_cache=True)
+    gc.collect()
+    assert model.call_graph.live is None and all(r() is None for r in held)
